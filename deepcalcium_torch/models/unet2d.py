@@ -1,0 +1,252 @@
+"""UNet2DS: the 2-D summary-image segmentation U-Net as an ``nn.Module``.
+
+Port of ``deepcalcium_tpu.models.unet2d`` (inference forward) and of the
+exact inference folds of ``deepcalcium_tpu.models.unet2d_fast`` (folded BN
+and the sigmoid head). The public forward takes (B, H, W) and returns
+(B, H, W) foreground probabilities as the JAX ``apply`` does; inside it runs
+NCHW. Sub-modules are named by the JAX package's ``LAYER_ORDER`` keys, so
+``from_jax_params`` / ``to_jax_params`` move weights between the packages
+layer by layer.
+
+The TPU lane-packing rewrites of ``unet2d_fast`` (``apply_fast_w`` and its
+kin) are not ported: they reshape tensors for the TPU's 128-lane matrix
+unit. ``fold()`` gives the folds alone, which is what ``fast="auto"`` runs.
+"""
+
+import copy
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepcalcium_torch.models import blocks as B
+
+__all__ = ["layer_order", "LAYER_ORDER", "UNet2DS", "fold_bn",
+           "from_jax_params", "to_jax_params", "forward_flops"]
+
+_F = 32
+_DEC_IN = {"dec3a_conv": 8, "dec2a_conv": 4, "dec1a_conv": 2, "dec0a_conv": 1}
+
+
+def layer_order(nfb: int = _F, up_mode: str = "transpose"):
+    """Weight-bearing layers as (name, kind, cout) in Keras build order;
+    kind is conv3 | conv1 | tconv | bn. Same list as the JAX package's."""
+    if up_mode not in ("transpose", "upsampling"):
+        raise ValueError(f"unknown up_mode {up_mode!r}")
+    f = nfb
+    order = []
+
+    def cbr(name, cout):
+        order.append((f"{name}_conv", "conv3", cout))
+        order.append((f"{name}_bn", "bn", cout))
+
+    def up(name, cout):
+        if up_mode == "transpose":
+            order.append((f"{name}_tconv", "tconv", cout))
+            order.append((f"{name}_bn", "bn", cout))
+
+    for lvl, mul in enumerate((1, 2, 4, 8)):
+        cbr(f"enc{lvl}a", f * mul)
+        cbr(f"enc{lvl}b", f * mul)
+    cbr("mida", f * 16)
+    cbr("midb", f * 16)
+    for lvl, mul in ((3, 8), (2, 4), (1, 2), (0, 1)):
+        up(f"up{lvl}", f * mul)
+        cbr(f"dec{lvl}a", f * mul)
+        cbr(f"dec{lvl}b", f * mul)
+    order.append(("head_conv", "conv1", 2))
+    return order
+
+
+LAYER_ORDER = layer_order()
+
+
+def fold_bn(weight, bias, bn, out_dim: int = 0):
+    """Fold eval-mode BN into the preceding conv (``unet2d_fast.fold_bn``):
+    y = (conv(x) + b - mean) * gamma / sqrt(var + eps) + beta
+      = conv_scaled(x) + b'.
+    ``out_dim`` is the kernel's output-channel dim: 0 for OIHW convs, 1 for
+    (Cin, Cout, 2, 2) transpose convs."""
+    scale = bn.weight * torch.rsqrt(bn.running_var + B.BN_EPS)
+    shape = [1] * weight.dim()
+    shape[out_dim] = -1
+    return (weight * scale.view(shape),
+            (bias - bn.running_mean) * scale + bn.bias)
+
+
+class UNet2DS(nn.Module):
+    """UNet2DS inference forward (``deepcalcium_tpu.models.unet2d.apply``
+    with ``train=False``).
+
+    # Arguments
+        nfb: filters of the first block (32 is the published width).
+        up_mode: 'transpose' (Conv2DTranspose + BN, the published recipe) or
+            'upsampling' (nearest-neighbour repeat, no weights).
+        compute_dtype: e.g. ``torch.bfloat16``; None computes in the input's
+            dtype. Parameters and BN statistics stay float32 and the softmax
+            runs in float32.
+        generator: CPU ``torch.Generator`` for the he_normal kernels; None
+            draws from a generator seeded with 0. Kernels are drawn on the
+            CPU, so a seed gives the same weights on every device; move
+            the module with ``.to(device)``.
+    """
+
+    def __init__(self, nfb: int = _F, up_mode: str = "transpose",
+                 compute_dtype=None, generator=None):
+        super().__init__()
+        self.nfb, self.up_mode = nfb, up_mode
+        self.compute_dtype = compute_dtype
+        self.folded = False
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        mult = 2 if up_mode == "transpose" else 3
+        cin = 1
+        for name, kind, cout in layer_order(nfb, up_mode):
+            if kind == "conv3":
+                cin = nfb * _DEC_IN[name] * mult if name in _DEC_IN else cin
+                self.add_module(name, B.Conv2d(cin, cout, 3, generator))
+            elif kind == "conv1":
+                self.add_module(name, B.Conv2d(cin, cout, 1, generator))
+            elif kind == "tconv":
+                self.add_module(name, B.ConvTranspose2x2(cin, cout, generator))
+            else:
+                self.add_module(name, B.BatchNorm(cout))
+            cin = cout
+
+    def _cbr(self, name, h):
+        y = getattr(self, f"{name}_conv")(h, self.compute_dtype)
+        if not self.folded:
+            y = getattr(self, f"{name}_bn")(y)
+        return torch.relu(y)
+
+    def _up(self, name, h):
+        if self.up_mode == "upsampling":
+            return h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        y = getattr(self, f"{name}_tconv")(h, self.compute_dtype)
+        if not self.folded:
+            y = getattr(self, f"{name}_bn")(y)
+        return torch.relu(y)
+
+    def forward(self, x):
+        """(B, H, W) -> (B, H, W) float32 probabilities; H, W % 16 == 0."""
+        h = x[:, None].to(self.compute_dtype or x.dtype)
+        skips = []
+        for lvl in range(4):
+            h = self._cbr(f"enc{lvl}b", self._cbr(f"enc{lvl}a", h))
+            skips.append(h)
+            h = B.maxpool2(h)
+        h = self._cbr("midb", self._cbr("mida", h))
+        for lvl in (3, 2, 1, 0):
+            # Channel order [up, skip], as the Keras builder concatenates.
+            h = torch.cat([self._up(f"up{lvl}", h), skips[lvl]], dim=1)
+            h = self._cbr(f"dec{lvl}b", self._cbr(f"dec{lvl}a", h))
+        head = self.head_conv
+        if self.folded:
+            # softmax([a, b])[1] == sigmoid(b - a), in float32.
+            return torch.sigmoid(B.conv2d(h.float(), head.weight,
+                                          head.bias)[:, 0])
+        logits = head(h, self.compute_dtype)
+        return torch.softmax(logits.float(), dim=1)[:, -1]
+
+    @torch.no_grad()
+    def fold(self) -> "UNet2DS":
+        """A copy with every BN folded into its conv and the 2-channel
+        softmax head turned into one sigmoid channel (exact up to float
+        rounding; ``unet2d_fast.fold_bn`` and its sigmoid head)."""
+        if self.folded:
+            return self
+        m = copy.deepcopy(self)
+        prev = None
+        for name, kind, _ in layer_order(self.nfb, self.up_mode):
+            if kind == "bn":
+                layer = getattr(m, prev)
+                w, b = fold_bn(layer.weight, layer.bias, getattr(m, name),
+                               out_dim=1 if prev.endswith("_tconv") else 0)
+                layer.weight.copy_(w)
+                layer.bias.copy_(b)
+                delattr(m, name)
+            prev = name
+        head = m.head_conv
+        head.weight = nn.Parameter(head.weight[1:] - head.weight[:1])
+        head.bias = nn.Parameter(head.bias[1:] - head.bias[:1])
+        m.folded = True
+        return m
+
+
+def from_jax_params(params, state, compute_dtype=None, device=None) -> UNet2DS:
+    """Build a ``UNet2DS`` from the JAX package's (params, state) dicts
+    (numpy or JAX arrays, or CPU tensors); nfb and up_mode are read off the shapes.
+
+    HWIO conv kernels and (p, q, o, c) transpose-conv kernels both become
+    PyTorch's layouts by ``permute(3, 2, 0, 1)`` (OIHW and (c, o, p, q));
+    at k = s = 2 the transpose conv needs no flip."""
+    nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
+    up_mode = "transpose" if "up0_tconv" in params else "upsampling"
+
+    def t(v):
+        return torch.from_numpy(np.array(v, dtype=np.float32))
+
+    sd = {}
+    for name, kind, _ in layer_order(nfb, up_mode):
+        p = params[name]
+        if kind == "bn":
+            s = state[name]
+            sd.update({f"{name}.weight": t(p["gamma"]),
+                       f"{name}.bias": t(p["beta"]),
+                       f"{name}.running_mean": t(s["mean"]),
+                       f"{name}.running_var": t(s["var"])})
+        else:
+            sd[f"{name}.weight"] = t(p["kernel"]).permute(3, 2, 0, 1)
+            sd[f"{name}.bias"] = t(p["bias"])
+    model = UNet2DS(nfb, up_mode, compute_dtype)
+    model.load_state_dict(sd)
+    return model.to(device) if device is not None else model
+
+
+def to_jax_params(model: UNet2DS):
+    """The inverse of :func:`from_jax_params`: (params, state) dicts of
+    float32 numpy arrays in the JAX package's layout."""
+    if model.folded:
+        raise ValueError("a folded model has no BN layers to export")
+    params, state = {}, {}
+
+    def a(v):
+        return v.detach().to("cpu", torch.float32).numpy()
+
+    for name, kind, _ in layer_order(model.nfb, model.up_mode):
+        m = getattr(model, name)
+        if kind == "bn":
+            params[name] = {"gamma": a(m.weight), "beta": a(m.bias)}
+            state[name] = {"mean": a(m.running_mean), "var": a(m.running_var)}
+        else:
+            params[name] = {"kernel": np.ascontiguousarray(
+                a(m.weight).transpose(2, 3, 1, 0)), "bias": a(m.bias)}
+    return params, state
+
+
+def forward_flops(h: int, w: int, nfb: int = _F,
+                  up_mode: str = "transpose") -> int:
+    """Analytic FLOPs (2 * MACs) of one forward on one (h, w) image, convs
+    and transpose convs only (``deepcalcium_tpu.models.unet2d.forward_flops``)."""
+    if h % 16 or w % 16:
+        raise ValueError(f"H and W must be multiples of 16, got {(h, w)}")
+    f = nfb
+    fl = 0
+    hh, ww = h, w
+    enc = [(1, f), (f, 2 * f), (2 * f, 4 * f), (4 * f, 8 * f), (8 * f, 16 * f)]
+    for i, (cin, cout) in enumerate(enc):
+        fl += 2 * 9 * (cin + cout) * cout * hh * ww
+        if i < len(enc) - 1:
+            hh, ww = hh // 2, ww // 2
+    cup = 16 * f
+    for cout in (8 * f, 4 * f, 2 * f, f):
+        if up_mode == "transpose":
+            fl += 2 * 4 * cup * cout * hh * ww
+            cat = cout + cout
+        else:
+            cat = cup + cout
+        hh, ww = hh * 2, ww * 2
+        fl += 2 * 9 * (cat + cout) * cout * hh * ww
+        cup = cout
+    fl += 2 * f * 2 * hh * ww
+    return fl

@@ -1,0 +1,85 @@
+"""Tests of the port that need a CUDA card (marker ``cuda``).
+
+They skip where no card is present. This file imports neither jax nor the
+JAX package, so that it also runs on a machine without them:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepcalcium_torch.models.unet2d import UNet2DS
+from deepcalcium_torch.ops import summary
+from deepcalcium_torch.train.evaluate import make_movie_evaluator
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape,dtype,lo,hi", [
+    ((37, 24, 40), torch.int16, -100, 3000),
+    ((31, 19, 137), torch.int16, -100, 3000),   # prime T, ragged H and W
+    ((7, 8, 130), torch.int16, -5000, -10),     # all negative
+    ((1, 40, 44), torch.int16, 0, 2000),        # T = 1
+    ((13, 509, 511), torch.uint16, 0, 65536),
+    ((10, 8, 130), torch.float32, -3000, 3000),
+])
+def test_k1_matches_plain_on_card(cuda_device, shape, dtype, lo, hi):
+    """K1 against its plain version on the same card: bitwise for the max
+    and for integer means (both sums are exact); rtol=1e-6 for float32
+    means (float64 sums in another order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    movie = torch.randint(lo, hi, shape, generator=g, device=cuda_device,
+                          dtype=torch.int32).to(dtype)
+    if dtype == torch.float32:
+        movie += torch.rand(shape, generator=g, device=cuda_device)
+    launches = summary.movie_summary_cuda.launches
+    mean, mx = summary.movie_summary_cuda(movie)
+    assert summary.movie_summary_cuda.launches == launches + 1
+    pmean, pmx = summary.movie_summary(movie)
+    assert torch.equal(mx, pmx.to(torch.float32))
+    if dtype == torch.float32:
+        torch.testing.assert_close(mean, pmean, rtol=1e-6, atol=0)
+    else:
+        assert torch.equal(mean, pmean)
+
+
+def test_k1_rejects_what_it_does_not_take(cuda_device):
+    with pytest.raises(TypeError):
+        summary.movie_summary_cuda(torch.zeros((2, 4, 4), device=cuda_device,
+                                               dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        summary.movie_summary_cuda(torch.zeros((2, 4, 8), device=cuda_device,
+                                               dtype=torch.int16)[..., ::2])
+
+
+def test_movie_evaluator_on_card_matches_cpu(cuda_device):
+    """The whole slice at a small size: the card (K1, float32 convs with
+    TF32 off) against the CPU (plain summary), rtol=1e-4, atol=1e-5 on prob
+    for sums in another order."""
+    rng = np.random.default_rng(7)
+    movie = torch.from_numpy(rng.integers(0, 1500, (20, 48, 48)).astype(np.int16))
+    model = UNet2DS(nfb=4, generator=torch.Generator().manual_seed(3)).eval()
+    cpu = make_movie_evaluator(model.fold(), movie.shape, window=(48, 48))(movie)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gpu_model = model.to(cuda_device).fold()
+        gpu = make_movie_evaluator(gpu_model, movie.shape, window=(48, 48))(
+            movie.to(cuda_device))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    mask, prob, mean = (a.cpu() for a in gpu)
+    assert torch.equal(mean, cpu[2])
+    torch.testing.assert_close(prob, cpu[1], rtol=1e-4, atol=1e-5)
+    near = (cpu[1] - 0.5).abs() < 1e-4
+    assert torch.equal(mask[~near], cpu[0][~near])

@@ -1,0 +1,61 @@
+"""Import hygiene of the PyTorch port, and its refusal to run without a card.
+
+``tests/conftest.py`` imports jax into every test process, so the checks
+that the port never imports jax run in a fresh interpreter.
+"""
+
+import os
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _python(*args, timeout=180):
+    return subprocess.run([sys.executable, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_and_chip_smoke_never_import_jax():
+    """Nor the JAX package: the port stands on its own."""
+    code = (
+        "import sys\n"
+        "import deepcalcium_torch.models.unet_2d_summary\n"
+        "import deepcalcium_torch.metrics.neurofinder\n"
+        "import deepcalcium_torch.ops.mask_summary\n"
+        "import deepcalcium_torch.ops._build\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = _python("-c", code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_package_import_is_light():
+    """``import deepcalcium_torch`` loads no submodule and not torch."""
+    code = ("import sys, deepcalcium_torch\n"
+            "print(deepcalcium_torch.__version__, 'torch' in sys.modules)\n")
+    proc = _python("-c", code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["0.1.0", "False"]
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No fallback: on a machine with no CUDA card the smoke run exits
+    non-zero and prints no ok line."""
+    if torch.cuda.is_available():
+        import pytest
+
+        pytest.skip("a CUDA card is present; this pins the behaviour "
+                    "without one")
+    proc = _python("chip_smoke.py")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "no CUDA device" in proc.stderr
