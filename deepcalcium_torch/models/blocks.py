@@ -1,13 +1,17 @@
-"""Inference building blocks of the U-Net family, on NCHW tensors.
+"""Building blocks of the U-Net family, on NCHW tensors.
 
-Port of ``deepcalcium_tpu.models.blocks`` (inference forms only). Semantics
-follow Keras 2.0.6 defaults as the JAX package does: SAME stride-1 convs
-with bias, k=s=2 transpose convs, 2x2 max-pool, and eval-mode BatchNorm with
-``eps=1e-3``.
+Port of ``deepcalcium_tpu.models.blocks``. Semantics follow Keras 2.0.6
+defaults as the JAX package does: SAME stride-1 convs with bias, k=s=2
+transpose convs, 2x2 max-pool, BatchNorm with ``eps=1e-3`` and inverted
+dropout.
 
 ``dtype`` is the compute dtype, as in the JAX package: when set, the input,
-kernel and bias are cast to it, the conv runs in it, and eval-mode BN runs
-in it with its float32 statistics cast down. Parameters stay float32.
+kernel and bias are cast to it, the conv runs in it, and BN normalises in it
+with its float32 statistics cast down. Parameters stay float32.
+
+Train-mode BN is written out here rather than taken from
+``F.batch_norm``: the Keras running update uses the biased batch variance,
+and ``F.batch_norm`` updates ``running_var`` with the unbiased one.
 """
 
 import torch
@@ -15,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["BN_EPS", "Conv2d", "ConvTranspose2x2", "BatchNorm", "conv2d",
-           "tconv2x2", "maxpool2", "batch_norm", "he_normal_"]
+           "tconv2x2", "maxpool2", "batch_norm", "batch_stats", "dropout",
+           "dropout_with_mask", "he_normal_"]
 
 BN_EPS = 1e-3  # Keras 2.0.6 BatchNormalization default epsilon.
 
@@ -52,7 +57,11 @@ def tconv2x2(x, weight, bias, dtype=None):
 
 
 def maxpool2(x):
-    """MaxPooling2D(2, strides=2)."""
+    """MaxPooling2D(2, strides=2). The gradient goes to the first maximum
+    of each 2x2 window in row-major order, as the JAX package's dense
+    ``custom_vjp`` routes it: PyTorch's CPU and CUDA max-pool kernels keep
+    the first of tied maxima. ``tests/test_torch_train.py`` pins this
+    against the JAX vjp and ``chip_smoke.py`` on the card."""
     return F.max_pool2d(x, 2)
 
 
@@ -64,6 +73,35 @@ def batch_norm(x, gamma, beta, mean, var):
     dt = x.dtype
     return ((x - mean.to(dt)[:, None, None]) * inv.to(dt)[:, None, None]
             + beta.to(dt)[:, None, None])
+
+
+def batch_stats(x):
+    """Batch mean and biased variance per channel over (N, H, W), in
+    float32 whatever ``x.dtype`` is (``blocks.batch_norm(train=True)``).
+    Differentiable: the train-mode gradient flows through both."""
+    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+    return mean, var
+
+
+def dropout_with_mask(x, rate: float, mask):
+    """Inverted dropout from a boolean keep-mask: ``x / keep`` where the mask
+    is set, 0 elsewhere, in ``x.dtype``."""
+    if mask is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def dropout(x, rate: float, train: bool, generator=None):
+    """Inverted dropout (Keras semantics), train-only. The keep-mask is
+    drawn from ``generator``, which must live on ``x.device``; the JAX
+    package's threefry stream cannot be reproduced, so tests inject masks
+    through :func:`dropout_with_mask`."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return dropout_with_mask(x, rate, mask)
 
 
 class Conv2d(nn.Module):
@@ -96,16 +134,34 @@ class ConvTranspose2x2(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BN: ``weight``/``bias`` are Keras gamma/beta, the buffers
-    ``running_mean``/``running_var`` its moving statistics."""
+    """Keras BN: ``weight``/``bias`` are gamma/beta, the buffers
+    ``running_mean``/``running_var`` its moving statistics, and
+    ``momentum`` the Keras one (0.99 after convs, 0.5 after transpose
+    convs): ``running = momentum * running + (1 - momentum) * batch``."""
 
-    def __init__(self, c):
+    def __init__(self, c, momentum: float = 0.99):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x):
-        return batch_norm(x, self.weight, self.bias, self.running_mean,
-                          self.running_var)
+    def forward(self, x, train: bool = False):
+        """Eval mode normalises by the running statistics. Train mode
+        normalises by the batch statistics and updates the running ones in
+        place."""
+        if not train:
+            return batch_norm(x, self.weight, self.bias, self.running_mean,
+                              self.running_var)
+        mean, var = batch_stats(x)
+        self.update_running(mean, var)
+        return batch_norm(x, self.weight, self.bias, mean, var)
+
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """Fold batch statistics into the running ones, with the biased
+        variance."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)

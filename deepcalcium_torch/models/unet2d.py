@@ -1,12 +1,13 @@
 """UNet2DS: the 2-D summary-image segmentation U-Net as an ``nn.Module``.
 
-Port of ``deepcalcium_tpu.models.unet2d`` (inference forward) and of the
-exact inference folds of ``deepcalcium_tpu.models.unet2d_fast`` (folded BN
-and the sigmoid head). The public forward takes (B, H, W) and returns
+Port of ``deepcalcium_tpu.models.unet2d`` (the forward in both modes) and of
+the exact inference folds of ``deepcalcium_tpu.models.unet2d_fast`` (folded
+BN and the sigmoid head). The public forward takes (B, H, W) and returns
 (B, H, W) foreground probabilities as the JAX ``apply`` does; inside it runs
 NCHW. Sub-modules are named by the JAX package's ``LAYER_ORDER`` keys, so
 ``from_jax_params`` / ``to_jax_params`` move weights between the packages
-layer by layer.
+layer by layer, and :func:`jax_tree` / :func:`torch_tensors` move any
+per-parameter tensors (Adam's moments) the same way.
 
 The TPU lane-packing rewrites of ``unet2d_fast`` (``apply_fast_w`` and its
 kin) are not ported: they reshape tensors for the TPU's 128-lane matrix
@@ -18,11 +19,13 @@ import copy
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepcalcium_torch.models import blocks as B
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet2DS", "fold_bn",
-           "from_jax_params", "to_jax_params", "forward_flops"]
+           "from_jax_params", "to_jax_params", "load_jax_params_",
+           "jax_tree", "torch_tensors", "forward_flops"]
 
 _F = 32
 _DEC_IN = {"dec3a_conv": 8, "dec2a_conv": 4, "dec1a_conv": 2, "dec0a_conv": 1}
@@ -75,8 +78,7 @@ def fold_bn(weight, bias, bn, out_dim: int = 0):
 
 
 class UNet2DS(nn.Module):
-    """UNet2DS inference forward (``deepcalcium_tpu.models.unet2d.apply``
-    with ``train=False``).
+    """UNet2DS forward (``deepcalcium_tpu.models.unet2d.apply``).
 
     # Arguments
         nfb: filters of the first block (32 is the published width).
@@ -89,13 +91,18 @@ class UNet2DS(nn.Module):
             draws from a generator seeded with 0. Kernels are drawn on the
             CPU, so a seed gives the same weights on every device; move
             the module with ``.to(device)``.
+        drp: base dropout rate of the training forward (0.25 published).
+        remat: recompute each conv-BN-ReLU block in the backward pass
+            (``torch.utils.checkpoint``) instead of keeping its activations.
     """
 
     def __init__(self, nfb: int = _F, up_mode: str = "transpose",
-                 compute_dtype=None, generator=None):
+                 compute_dtype=None, generator=None, drp: float = 0.25,
+                 remat: bool = False):
         super().__init__()
         self.nfb, self.up_mode = nfb, up_mode
         self.compute_dtype = compute_dtype
+        self.drp, self.remat = drp, remat
         self.folded = False
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -110,36 +117,70 @@ class UNet2DS(nn.Module):
             elif kind == "tconv":
                 self.add_module(name, B.ConvTranspose2x2(cin, cout, generator))
             else:
-                self.add_module(name, B.BatchNorm(cout))
+                # Keras momentum: 0.5 after the transpose convs, else 0.99.
+                momentum = 0.5 if name.startswith("up") else 0.99
+                self.add_module(name, B.BatchNorm(cout, momentum))
             cin = cout
 
-    def _cbr(self, name, h):
-        y = getattr(self, f"{name}_conv")(h, self.compute_dtype)
-        if not self.folded:
-            y = getattr(self, f"{name}_bn")(y)
-        return torch.relu(y)
+    def _cbr_train(self, conv, bn, h):
+        y = conv(h, self.compute_dtype)
+        mean, var = B.batch_stats(y)
+        return torch.relu(B.batch_norm(y, bn.weight, bn.bias, mean, var)), mean, var
 
-    def _up(self, name, h):
+    def _cbr(self, name, h, train):
+        conv = getattr(self, f"{name}_conv")
+        if self.folded:
+            return torch.relu(conv(h, self.compute_dtype))
+        bn = getattr(self, f"{name}_bn")
+        if not train:
+            return torch.relu(bn(conv(h, self.compute_dtype)))
+        if self.remat:
+            y, mean, var = checkpoint(self._cbr_train, conv, bn, h,
+                                      use_reentrant=False)
+        else:
+            y, mean, var = self._cbr_train(conv, bn, h)
+        # Outside the checkpointed block, so the recompute in the backward
+        # pass does not fold the batch statistics in a second time.
+        bn.update_running(mean.detach(), var.detach())
+        return y
+
+    def _up(self, name, h, train):
         if self.up_mode == "upsampling":
             return h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         y = getattr(self, f"{name}_tconv")(h, self.compute_dtype)
         if not self.folded:
-            y = getattr(self, f"{name}_bn")(y)
+            y = getattr(self, f"{name}_bn")(y, train)
         return torch.relu(y)
 
-    def forward(self, x):
-        """(B, H, W) -> (B, H, W) float32 probabilities; H, W % 16 == 0."""
+    def forward(self, x, train: bool = False, generator=None):
+        """(B, H, W) -> (B, H, W) float32 probabilities; H, W % 16 == 0.
+
+        ``train=True`` normalises by batch statistics, updates the BN
+        running buffers in place, and applies dropout with keep-masks drawn
+        from ``generator`` (a ``torch.Generator`` on the input's device).
+        Skips are taken after dropout, as in the JAX package."""
+        if train and self.folded:
+            raise ValueError("a folded model has no BN to train")
+        if train and self.drp and generator is None:
+            raise ValueError("the training forward needs a generator for "
+                             "dropout (or drp=0)")
+        d = self.drp
         h = x[:, None].to(self.compute_dtype or x.dtype)
         skips = []
-        for lvl in range(4):
-            h = self._cbr(f"enc{lvl}b", self._cbr(f"enc{lvl}a", h))
+        for lvl, rate in enumerate((0.0, d, 2 * d, 2 * d)):
+            h = self._cbr(f"enc{lvl}b", self._cbr(f"enc{lvl}a", h, train),
+                          train)
+            h = B.dropout(h, rate, train, generator)
             skips.append(h)
             h = B.maxpool2(h)
-        h = self._cbr("midb", self._cbr("mida", h))
+        h = self._cbr("midb", self._cbr("mida", h, train), train)
         for lvl in (3, 2, 1, 0):
+            h = B.dropout(self._up(f"up{lvl}", h, train),
+                          d if lvl == 0 else 2 * d, train, generator)
             # Channel order [up, skip], as the Keras builder concatenates.
-            h = torch.cat([self._up(f"up{lvl}", h), skips[lvl]], dim=1)
-            h = self._cbr(f"dec{lvl}b", self._cbr(f"dec{lvl}a", h))
+            h = torch.cat([h, skips[lvl]], dim=1)
+            h = self._cbr(f"dec{lvl}b", self._cbr(f"dec{lvl}a", h, train),
+                          train)
         head = self.head_conv
         if self.folded:
             # softmax([a, b])[1] == sigmoid(b - a), in float32.
@@ -173,54 +214,85 @@ class UNet2DS(nn.Module):
         return m
 
 
-def from_jax_params(params, state, compute_dtype=None, device=None) -> UNet2DS:
-    """Build a ``UNet2DS`` from the JAX package's (params, state) dicts
-    (numpy or JAX arrays, or CPU tensors); nfb and up_mode are read off the shapes.
+def _leaves(kind):
+    """(torch attribute, JAX leaf) pairs of a layer's parameters."""
+    if kind == "bn":
+        return (("weight", "gamma"), ("bias", "beta"))
+    return (("weight", "kernel"), ("bias", "bias"))
 
-    HWIO conv kernels and (p, q, o, c) transpose-conv kernels both become
-    PyTorch's layouts by ``permute(3, 2, 0, 1)`` (OIHW and (c, o, p, q));
-    at k = s = 2 the transpose conv needs no flip."""
+
+def jax_tree(model: UNet2DS, tensors=None):
+    """``{layer: {leaf: float32 ndarray}}`` in the JAX package's params
+    layout: of the model's parameters, or of ``tensors``, a map from each
+    parameter's name (``"enc0a_conv.weight"``) to a tensor of its shape,
+    such as Adam's moments. Arrays are copies.
+
+    HWIO conv kernels and (p, q, o, c) transpose-conv kernels are PyTorch's
+    OIHW and (c, o, p, q) permuted by ``(2, 3, 1, 0)``; at k = s = 2 the
+    transpose conv needs no flip."""
+    if model.folded:
+        raise ValueError("a folded model has no BN layers to export")
+    out = {}
+    for name, kind, _ in layer_order(model.nfb, model.up_mode):
+        layer = getattr(model, name)
+        for attr, leaf in _leaves(kind):
+            t = (getattr(layer, attr) if tensors is None
+                 else tensors[f"{name}.{attr}"])
+            a = t.detach().to("cpu", torch.float32).numpy()
+            a = a.transpose(2, 3, 1, 0) if leaf == "kernel" else a
+            out.setdefault(name, {})[leaf] = np.array(a, order="C")
+    return out
+
+
+def torch_tensors(model: UNet2DS, tree):
+    """The inverse of :func:`jax_tree`: ``{parameter name: float32 CPU
+    tensor}`` in PyTorch's layouts from a tree in the JAX params layout."""
+    out = {}
+    for name, kind, _ in layer_order(model.nfb, model.up_mode):
+        for attr, leaf in _leaves(kind):
+            t = torch.from_numpy(np.array(tree[name][leaf], dtype=np.float32))
+            out[f"{name}.{attr}"] = (t.permute(3, 2, 0, 1).contiguous()
+                                     if leaf == "kernel" else t)
+    return out
+
+
+@torch.no_grad()
+def load_jax_params_(model: UNet2DS, params, state) -> UNet2DS:
+    """Copy (params, state) in the JAX package's layout into ``model`` in
+    place, on whatever device it lives."""
+    sd = torch_tensors(model, params)
+    for name, kind, _ in layer_order(model.nfb, model.up_mode):
+        if kind == "bn":
+            sd[f"{name}.running_mean"] = torch.from_numpy(
+                np.array(state[name]["mean"], dtype=np.float32))
+            sd[f"{name}.running_var"] = torch.from_numpy(
+                np.array(state[name]["var"], dtype=np.float32))
+    model.load_state_dict(sd)
+    return model
+
+
+def from_jax_params(params, state, compute_dtype=None, device=None,
+                    **kwargs) -> UNet2DS:
+    """Build a ``UNet2DS`` from the JAX package's (params, state) dicts
+    (numpy or JAX arrays, or CPU tensors); nfb and up_mode are read off the
+    shapes. ``kwargs`` go to ``UNet2DS`` (``drp``, ``remat``)."""
     nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
     up_mode = "transpose" if "up0_tconv" in params else "upsampling"
-
-    def t(v):
-        return torch.from_numpy(np.array(v, dtype=np.float32))
-
-    sd = {}
-    for name, kind, _ in layer_order(nfb, up_mode):
-        p = params[name]
-        if kind == "bn":
-            s = state[name]
-            sd.update({f"{name}.weight": t(p["gamma"]),
-                       f"{name}.bias": t(p["beta"]),
-                       f"{name}.running_mean": t(s["mean"]),
-                       f"{name}.running_var": t(s["var"])})
-        else:
-            sd[f"{name}.weight"] = t(p["kernel"]).permute(3, 2, 0, 1)
-            sd[f"{name}.bias"] = t(p["bias"])
-    model = UNet2DS(nfb, up_mode, compute_dtype)
-    model.load_state_dict(sd)
+    model = load_jax_params_(UNet2DS(nfb, up_mode, compute_dtype, **kwargs),
+                             params, state)
     return model.to(device) if device is not None else model
 
 
 def to_jax_params(model: UNet2DS):
     """The inverse of :func:`from_jax_params`: (params, state) dicts of
-    float32 numpy arrays in the JAX package's layout."""
-    if model.folded:
-        raise ValueError("a folded model has no BN layers to export")
-    params, state = {}, {}
-
-    def a(v):
-        return v.detach().to("cpu", torch.float32).numpy()
-
+    float32 numpy arrays in the JAX package's layout (copies)."""
+    params = jax_tree(model)
+    state = {}
     for name, kind, _ in layer_order(model.nfb, model.up_mode):
-        m = getattr(model, name)
         if kind == "bn":
-            params[name] = {"gamma": a(m.weight), "beta": a(m.bias)}
-            state[name] = {"mean": a(m.running_mean), "var": a(m.running_var)}
-        else:
-            params[name] = {"kernel": np.ascontiguousarray(
-                a(m.weight).transpose(2, 3, 1, 0)), "bias": a(m.bias)}
+            bn = getattr(model, name)
+            state[name] = {"mean": bn.running_mean.detach().cpu().numpy().copy(),
+                           "var": bn.running_var.detach().cpu().numpy().copy()}
     return params, state
 
 

@@ -1,67 +1,402 @@
-"""UNet2DSummary: the neuron-segmentation wrapper, inference side.
+"""UNet2DSummary: the neuron-segmentation wrapper (fit, evaluate_movie).
 
 Port of ``deepcalcium_tpu.models.unet_2d_summary.UNet2DSummary``: the
-constructor, checkpoint loading, and ``evaluate_movie`` for a movie held as
-a tensor or a numpy array. Training (``fit``), ``predict`` over dataset
-files, Keras HDF5 weights, HDF5 movie paths and frames larger than the
-window are later parts of the port (ROADMAP, Queue 1).
+constructor with its injection points, ``fit`` and ``evaluate_movie`` for a
+movie held as a tensor or a numpy array. ``predict`` over dataset files,
+Keras HDF5 weights, HDF5 movie paths and frames larger than the window are
+later parts of the port (ROADMAP, Queue 1 item 5), and so is multi-GPU
+training (item 11).
+
+The default dataset accessors read the neurofinder HDF5 contract with
+``h5py``, imported inside each function: a machine without ``h5py`` can
+still train from summaries passed through the injection points.
 """
 
+import copy
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 
-from deepcalcium_torch.models.unet2d import from_jax_params
+from deepcalcium_torch.metrics.neurofinder import nf_mask_metrics
+from deepcalcium_torch.models.unet2d import (UNet2DS, from_jax_params,
+                                             load_jax_params_, to_jax_params)
+from deepcalcium_torch.ops import losses as L
+from deepcalcium_torch.ops.mask_summary import mask_summary_exact
+from deepcalcium_torch.train import trainer as T
+from deepcalcium_torch.train.callbacks import CSVMetricsLogger, plot_metrics_grid
 from deepcalcium_torch.train.checkpoints import (latest_checkpoint,
-                                                 load_checkpoint)
-from deepcalcium_torch.train.evaluate import make_movie_evaluator
+                                                 load_checkpoint,
+                                                 read_checkpoint,
+                                                 save_checkpoint)
+from deepcalcium_torch.train.evaluate import (make_movie_evaluator,
+                                              predict_batched)
+from deepcalcium_torch.train.sampler import (Prefetcher, WindowSampler,
+                                             make_put_fn)
 from deepcalcium_torch.utils.config import checkpoints_dir
 from deepcalcium_torch.utils.device import require_cuda
+from deepcalcium_torch.utils.profiling import trace
 
-__all__ = ["UNet2DSummary"]
+__all__ = ["UNet2DSummary", "summarize_series", "summarize_mask",
+           "name_dataset"]
+
+# PRNG implementations the JAX package's ``prng_impl`` accepts.
+_PRNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
+
+
+# --- Default dataset accessors (neurofinder HDF5 contract) ------------------
+
+def summarize_series(dspath: str) -> np.ndarray:
+    """z-normalised mean summary image of a dataset file."""
+    import h5py
+
+    with h5py.File(dspath, "r") as fp:
+        summ = fp["series/mean"][...].astype(np.float32)
+    return (summ - np.mean(summ)) / np.std(summ)
+
+
+def summarize_mask(dspath: str) -> np.ndarray:
+    """Flattened, conflict-eroded mask summary of a dataset file (the exact
+    sequential walk, ``ops.mask_summary.mask_summary_exact``)."""
+    import h5py
+
+    with h5py.File(dspath, "r") as fp:
+        if "masks" not in fp:
+            raise KeyError(
+                f"{dspath} has no ground-truth masks (a .test set?) — "
+                f"scoring/outlines against ground truth need masks/raw")
+        msks = fp["masks/raw"][...]
+    return mask_summary_exact(msks)
+
+
+def name_dataset(dspath: str) -> str:
+    import h5py
+
+    with h5py.File(dspath, "r") as fp:
+        name = fp.attrs["name"]
+    return name if isinstance(name, str) else name.decode()
 
 
 class UNet2DSummary:
     """Neuron-segmentation wrapper around ``UNet2DS``.
 
     # Arguments
-        cpdir: checkpoint directory that ``model_path="latest"`` reads;
-            None means ``<checkpoints_dir>/neurons_unet2ds``, resolved (and
-            created) only when "latest" is asked for.
+        cpdir: checkpoint directory that ``fit`` writes to and
+            ``model_path="latest"`` reads; None means
+            ``<checkpoints_dir>/neurons_unet2ds``, resolved (and created)
+            when first needed.
+        dataset_name_func, series_summary_func, mask_summary_func: map a
+            dataset reference (a path for the defaults) to its name, its
+            (H, W) summary image and its (H, W) binary mask.
+        net_func: builds the net; called as ``net_func(compute_dtype=...,
+            generator=..., remat=...)``, e.g.
+            ``functools.partial(UNet2DS, nfb=4, drp=0.0)``.
         compute_dtype: e.g. ``torch.bfloat16`` for the convs; None = float32.
-        device: where movies are evaluated. The default, "cuda", raises when
-            no card is present: the port never falls back to the CPU by
-            itself. Pass "cpu" to run on the CPU on purpose.
+        remat: recompute conv blocks in the backward pass of ``fit``.
+        device: where the net runs. The default, "cuda", raises when no card
+            is present: the port never falls back to the CPU by itself.
+            Pass "cpu" to run on the CPU on purpose.
     """
 
-    def __init__(self, cpdir=None, compute_dtype=None, device="cuda"):
+    def __init__(self, cpdir=None, dataset_name_func=name_dataset,
+                 series_summary_func=summarize_series,
+                 mask_summary_func=summarize_mask, net_func=UNet2DS,
+                 compute_dtype=None, remat=False, device="cuda"):
         self.cpdir = cpdir
+        self.dataset_name_func = dataset_name_func
+        self.series_summary_func = series_summary_func
+        self.mask_summary_func = mask_summary_func
+        self.net_func = net_func
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.device = torch.device(device)
         if self.device.type == "cuda":
             require_cuda()
 
-    def _load_params(self, model_path):
-        """(params, state) in the JAX package's layout, from a ``.ckpt``
-        written by either package, or the newest one in ``cpdir`` when
-        ``model_path == "latest"``."""
+    def _cpdir(self) -> str:
+        if self.cpdir is None:
+            self.cpdir = os.path.join(checkpoints_dir(), "neurons_unet2ds")
+        os.makedirs(self.cpdir, exist_ok=True)
+        return self.cpdir
+
+    def _resolve(self, model_path):
+        """``model_path``, with "latest" resolved to the newest checkpoint
+        in ``cpdir``; Keras HDF5 weights are refused."""
         if model_path == "latest":
-            cpdir = self.cpdir or os.path.join(checkpoints_dir(),
-                                               "neurons_unet2ds")
+            cpdir = self._cpdir()
             resolved = latest_checkpoint(cpdir)
             if resolved is None:
                 raise FileNotFoundError(
                     f"model_path='latest' but no checkpoint exists in {cpdir}")
             model_path = resolved
-        logging.getLogger(__name__).info("loading params from %s", model_path)
         if str(model_path).endswith((".hdf5", ".h5")):
             raise NotImplementedError(
                 "Keras HDF5 weights are not ported yet (ROADMAP Queue 1 "
                 "item 5: Keras import)")
+        return model_path
+
+    def _load_params(self, model_path):
+        """(params, state) in the JAX package's layout, from a ``.ckpt``
+        written by either package, or the newest one in ``cpdir`` when
+        ``model_path == "latest"``."""
+        model_path = self._resolve(model_path)
+        logging.getLogger(__name__).info("loading params from %s", model_path)
         params, state, _ = load_checkpoint(model_path)
         return params, state
+
+    # ------------------------------------------------------------------ fit
+
+    def fit(self, dataset_paths, model_path=None, proceed=False,
+            shape_trn=(96, 96), shape_val=(512, 512), batch_size_trn=32,
+            nb_steps_trn=200, nb_epochs=20, prop_trn=0.75, prop_val=0.25,
+            learning_rate=2e-3, loss="binary_crossentropy", seed=865,
+            mesh=None, adaptive_sampling=False, nb_max_augment=15,
+            epoch_callbacks=(), profile_dir=None, ema_decay=None,
+            lr_schedule="plateau", steps_per_dispatch=1, fast_train="auto",
+            weight_decay=0.0, prng_impl="threefry2x32", preset=None):
+        """Train; returns (history dict, best checkpoint path).
+
+        The JAX package's ``fit``: row-split train/validation bands per
+        dataset, neuron-centred augmented training windows, per-epoch
+        Neurofinder validation on 6 dihedral full-image views, a checkpoint
+        every epoch named by val F1, and ReduceLROnPlateau on train F1.
+        Every knob is checked before any dataset is read.
+
+        ``epoch_callbacks``: callables ``f(epoch, logs_dict)`` run at the
+        end of every epoch. ``adaptive_sampling``: re-weight datasets by
+        1 - val F1. ``ema_decay``: validate and checkpoint a Polyak average
+        of the weights. ``lr_schedule``: "plateau", "cosine" (to 1e-4 over
+        ``nb_epochs``) or a callable ``f(next_epoch) -> lr``.
+        ``weight_decay`` > 0 trains with AdamW. ``profile_dir``: a
+        ``torch.profiler`` trace of epoch 1 (epoch 0 if it is the only one).
+        ``model_path`` (a ``.ckpt`` of either package, or "latest") warm
+        starts; with ``proceed=True`` Adam's moments, step count and
+        learning rate resume too.
+
+        ``steps_per_dispatch``, ``prng_impl``, ``preset`` and ``fast_train``
+        select TPU dispatch, PRNG and lane-packing levers of the JAX package;
+        they are checked and logged, and change nothing here. ``mesh``
+        (multi-device training) is not ported yet.
+        """
+        logger = logging.getLogger(__name__)
+        if shape_trn[0] != shape_trn[1] or shape_val[0] != shape_val[1]:
+            raise ValueError(f"square windows required: {shape_trn}, "
+                             f"{shape_val}")
+        for nm, shp in (("shape_trn", shape_trn), ("shape_val", shape_val)):
+            if shp[0] < 16 or shp[0] % 16:
+                raise ValueError(f"{nm}={shp}: window sides must be "
+                                 f"multiples of 16 (4 2x pools)")
+        if not (0 < prop_trn < 1 and 0 < prop_val < 1):
+            raise ValueError(f"prop_trn={prop_trn}, prop_val={prop_val} "
+                             f"must lie in (0, 1)")
+        if proceed and not model_path:
+            raise ValueError("proceed=True requires model_path")
+        if preset not in (None, "parity", "perf"):
+            raise ValueError(f"preset={preset!r}: expected None, 'parity' "
+                             f"or 'perf'")
+        kdisp = int(steps_per_dispatch)
+        if kdisp < 1 or nb_steps_trn % kdisp != 0:
+            raise ValueError(
+                f"steps_per_dispatch={kdisp} must be >= 1 and divide "
+                f"nb_steps_trn={nb_steps_trn}")
+        if prng_impl not in _PRNG_IMPLS:
+            raise ValueError(f"prng_impl={prng_impl!r}: expected one of "
+                             f"{_PRNG_IMPLS}")
+        if fast_train not in ("auto", True, False):
+            raise ValueError(f"fast_train={fast_train!r}: expected 'auto', "
+                             f"True or False")
+        if not (lr_schedule in ("plateau", "cosine") or callable(lr_schedule)):
+            raise ValueError(f"unknown lr_schedule: {lr_schedule!r}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device training is not ported yet (ROADMAP Queue 1 "
+                "item 11: multi-GPU)")
+        if (kdisp != 1 or prng_impl != "threefry2x32" or preset is not None
+                or fast_train != "auto"):
+            logger.info(
+                "steps_per_dispatch=%d, prng_impl=%r, preset=%r, "
+                "fast_train=%r: TPU dispatch, PRNG and lane-packing levers "
+                "of the JAX package; no-ops here (one step per launch, the "
+                "torch Philox stream, the plain forward)",
+                kdisp, prng_impl, preset, fast_train)
+        loss_fn = L.LOSSES[loss] if isinstance(loss, str) else loss
+        if model_path:
+            model_path = self._resolve(model_path)
+            logger.info("starting from checkpoint %s", model_path)
+        cpdir = self._cpdir()
+
+        # Summaries.
+        names = [self.dataset_name_func(p) for p in dataset_paths]
+        S = [np.asarray(self.series_summary_func(p)) for p in dataset_paths]
+        M = [np.asarray(self.mask_summary_func(p)) for p in dataset_paths]
+
+        # Row bands: train from the top, validate at the bottom.
+        yctrn = [(0, int(s.shape[0] * prop_trn)) for s in S]
+        ycval = [(s.shape[0] - int(s.shape[0] * prop_val), s.shape[0]) for s in S]
+        for nm, s_ in zip(names, S):
+            if int(s_.shape[0] * prop_val) < 1 or int(s_.shape[0] * prop_trn) < 1:
+                raise ValueError(
+                    f"{nm}: prop_trn={prop_trn}/prop_val={prop_val} round "
+                    f"to an empty row band on a {s_.shape[0]}-row image")
+
+        # Model + optimizer. The initial weights are drawn on the CPU from
+        # the seed, so a seed gives the same net on every device.
+        net = self.net_func(compute_dtype=self.compute_dtype,
+                            generator=torch.Generator().manual_seed(seed),
+                            remat=self.remat)
+        if model_path:
+            ckpt = read_checkpoint(model_path)
+            load_jax_params_(net, ckpt["params"], ckpt["state"])
+        net.to(self.device)
+        optimizer = T.make_optimizer(net, learning_rate,
+                                     weight_decay=weight_decay)
+        if proceed and ckpt["opt_state"]:
+            T.load_optax_state_(net, optimizer, ckpt["opt_state"])
+        step = T.make_train_step(net, loss_fn, optimizer)
+
+        sampler = WindowSampler(S, M, names, yctrn, shape_trn,
+                                nb_max_augment=nb_max_augment, seed=seed)
+        prefetch = Prefetcher(sampler.batches(batch_size_trn),
+                              put_fn=make_put_fn(self.device))
+
+        tic = int(time.time())
+        csvlog = CSVMetricsLogger(os.path.join(cpdir, f"{tic}_metrics.csv"))
+        if lr_schedule == "plateau":
+            plateau = T.ReduceLROnPlateau(factor=0.5, patience=5, min_lr=1e-4)
+            next_lr = lambda epoch, agg, lr: plateau.update(agg.get("F1", 0.0), lr)
+        elif lr_schedule == "cosine":
+            cosine = T.CosineDecay(learning_rate, nb_epochs, min_lr=1e-4)
+            next_lr = lambda epoch, agg, lr: cosine.lr_at(epoch + 1)
+        else:
+            next_lr = lambda epoch, agg, lr: float(lr_schedule(epoch + 1))
+        # Dropout keep-masks are drawn on the device from their own stream.
+        dropout_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+        best_f1, best_path = -1.0, None
+        history: dict[str, list] = {}
+        eval_net = net
+        if ema_decay:
+            eval_net = copy.deepcopy(net)
+            w0 = float(ema_decay) ** (nb_steps_trn * nb_epochs)
+            if w0 > 0.05:
+                logger.warning(
+                    "ema_decay=%s over %d total steps keeps %.0f%% of the "
+                    "INIT weights in the average; use decay <= %.4f or more "
+                    "steps, or expect near-zero validation metrics.",
+                    ema_decay, nb_steps_trn * nb_epochs, 100 * w0,
+                    0.05 ** (1.0 / max(1, nb_steps_trn * nb_epochs)))
+        eval_fwd = T.make_eval_forward(eval_net)
+        # Profile the first epoch after cuDNN's first calls.
+        profile_epoch = 1 if nb_epochs > 1 else 0
+
+        try:
+            for epoch in range(nb_epochs):
+                t0 = time.time()
+                # Metrics stay on the device until the epoch ends.
+                step_metrics: list[dict] = []
+                with trace(profile_dir if epoch == profile_epoch else None):
+                    for _ in range(nb_steps_trn):
+                        sb, mb = next(prefetch)
+                        step_metrics.append(step(sb, mb, dropout_gen))
+                        if ema_decay:
+                            T.ema_update(eval_net.parameters(),
+                                         net.parameters(), ema_decay)
+                # One sync per epoch; keys in sorted order, as the JAX
+                # package's device_get of a dict returns them.
+                keys = sorted(step_metrics[0])
+                fetched = torch.stack([torch.stack([m[k] for k in keys])
+                                       for m in step_metrics]).cpu().numpy()
+                agg: dict[str, float] = {
+                    k: float(np.mean(fetched[:, i])) for i, k in enumerate(keys)}
+
+                if ema_decay:
+                    # The average covers the parameters; the BN running
+                    # statistics are the trained net's.
+                    for b_avg, b in zip(eval_net.buffers(), net.buffers()):
+                        b_avg.copy_(b)
+                vmet, name_to_f1 = self._validate(
+                    eval_fwd, S, M, names, ycval, shape_val, epoch)
+                agg.update(vmet)
+                if not np.isfinite(agg["loss"]):
+                    raise FloatingPointError(
+                        f"non-finite training loss at epoch {epoch}: "
+                        f"{agg['loss']} (lr={T.current_lr(optimizer)})")
+                agg["lr"] = T.current_lr(optimizer)
+                agg["epoch_seconds"] = time.time() - t0
+                csvlog.append(epoch, agg)
+                for k, v in agg.items():
+                    history.setdefault(k, []).append(v)
+                plot_metrics_grid(csvlog.history,
+                                  os.path.join(cpdir, f"{tic}_metrics.png"),
+                                  title=f"epoch {epoch}")
+                logger.info(
+                    "epoch %d: loss=%.4f F1=%.4f val_nf_f1_mean=%.4f (%.1fs)",
+                    epoch, agg["loss"], agg.get("F1", 0.0),
+                    agg["val_nf_f1_mean"], agg["epoch_seconds"])
+
+                cp = os.path.join(
+                    cpdir,
+                    f"{tic}_model_{epoch:02d}_{agg['val_nf_f1_mean']:.3f}.ckpt")
+                params, state = to_jax_params(eval_net)
+                save_checkpoint(cp, params, state, T.optax_state(net, optimizer),
+                                meta={"epoch": epoch, **{k: float(v) for k, v in agg.items()}})
+                if agg["val_nf_f1_mean"] > best_f1:
+                    best_f1, best_path = agg["val_nf_f1_mean"], cp
+
+                T.set_lr(optimizer,
+                         next_lr(epoch, agg, T.current_lr(optimizer)))
+                if adaptive_sampling:
+                    sampler.reweight(name_to_f1)
+                for cb in epoch_callbacks:
+                    cb(epoch, agg)
+        finally:
+            prefetch.close()
+
+        return history, best_path
+
+    def _validate(self, eval_fwd, S, M, names, ycval, shape_val, epoch):
+        """Neurofinder metrics on 6 dihedral full-image views per dataset
+        ({identity, fliplr, flipud, rot90 x3}), on the validation rows only,
+        all views in one batched forward. The band's crop drops its last row
+        and column (``max()`` as an exclusive bound), as the reference does,
+        and epoch ``e`` adds ``1e-4 * e`` to the F1 summaries to break ties
+        toward later checkpoints."""
+        views, view_meta = [], []
+        for s, m, name, (y0, y1) in zip(S, M, names, ycval):
+            vm = np.zeros(s.shape, np.uint8)
+            vm[y0:y1, :] = 1
+            for f in (lambda x: x, np.fliplr, np.flipud,
+                      lambda x: np.rot90(x, 1), lambda x: np.rot90(x, 2),
+                      lambda x: np.rot90(x, 3)):
+                fs, fm, fv = f(s), f(m), f(vm)
+                yy, xx = np.where(fv == 1)
+                views.append(fs)
+                view_meta.append((fm, name, (yy.min(), yy.max(), xx.min(), xx.max())))
+
+        probs = predict_batched(eval_fwd, views, self.device, window=shape_val)
+        pp, rr, ff = [], [], []
+        name_to_f1: dict[str, list] = {}
+        for mp, (m, name, (y0, y1, x0, x1)) in zip(probs, view_meta):
+            p, r, _, _, f = nf_mask_metrics(
+                m[y0:y1, x0:x1], np.round(mp[y0:y1, x0:x1]))
+            pp.append(p)
+            rr.append(r)
+            ff.append(f)
+            name_to_f1.setdefault(name, []).append(f)
+
+        eps = 1e-4 * epoch if epoch else 0.0
+        return {
+            "val_nf_f1_mean": float(np.mean(ff) + eps),
+            "val_nf_f1_median": float(np.median(ff) + eps),
+            "val_nf_f1_min": float(np.min(ff) + eps),
+            "val_nf_f1_adj": float(np.mean(ff) * np.min(ff) + eps),
+            "val_nf_prec": float(np.mean(pp)),
+            "val_nf_reca": float(np.mean(rr)),
+        }, name_to_f1
+
+    # -------------------------------------------------------------- evaluate
 
     def evaluate_movie(self, movie, model_path=None, params=None, state=None,
                        window_shape=(512, 512), tta=True, threshold=0.5,

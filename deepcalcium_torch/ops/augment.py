@@ -1,19 +1,22 @@
-"""Invertible 2-D augmentations (the dihedral group D4) for test-time
-augmentation.
+"""Invertible 2-D augmentations (the dihedral group D4) for test-time and
+train-time augmentation.
 
 Port of ``deepcalcium_tpu.ops.augment``: the same 8 named (forward, inverse)
 pairs in the same order over axes (1, 2) of a (B, H, W) or (B, H, W, C)
 tensor, and the same D4 group tables. ``torch.rot90(x, k, dims=(1, 2))`` and
 ``torch.flip`` follow numpy's (and so JAX's) conventions. TTA runs as one
 batched forward: :func:`tta_expand` stacks the 8 views, the net runs once
-on them, and :func:`tta_collapse` inverts and averages.
+on them, and :func:`tta_collapse` inverts and averages. Train-time
+augmentation composes the reference's random walk over generators into one
+D4 element on the host (:func:`compose_random_walk`, numpy only).
 """
 
 import numpy as np
 import torch
 
 __all__ = ["AUGMENTATION_NAMES", "INVERTIBLE_2D_AUGMENTATIONS", "D4_TABLE",
-           "D4_INVERSE", "tta_expand", "tta_collapse"]
+           "D4_INVERSE", "GENERATOR_CODES", "tta_expand", "tta_collapse",
+           "compose_random_walk"]
 
 
 def _rot90(x, k):
@@ -60,6 +63,10 @@ D4_TABLE = np.array(
 # D4_INVERSE[a] = code of the inverse of augmentation a.
 D4_INVERSE = np.array([0, 1, 2, 5, 4, 3, 6, 7], dtype=np.int32)
 
+# Codes of the 6 train-time generators in the reference's order: identity,
+# hflip, vflip, rot90, rot180, rot270.
+GENERATOR_CODES = np.array([0, 2, 1, 3, 4, 5], dtype=np.int32)
+
 
 def tta_expand(batch: torch.Tensor) -> torch.Tensor:
     """All 8 views of a (B, H, W) batch: (8, B, H, W). Needs H == W."""
@@ -71,3 +78,16 @@ def tta_collapse(preds: torch.Tensor) -> torch.Tensor:
     inverted = [inv(preds[i])
                 for i, (_, _, inv) in enumerate(INVERTIBLE_2D_AUGMENTATIONS)]
     return torch.stack(inverted).mean(dim=0)
+
+
+def compose_random_walk(rng: np.random.Generator, nb_max_augment: int) -> int:
+    """The reference's train-time augmentation walk as ONE D4 code: draw
+    ``k ~ U{0..nb_max_augment}`` generators and compose them in the group
+    table, each applied after the composite so far. Same draws from ``rng``
+    as the JAX package's ``compose_random_walk``."""
+    k = int(rng.integers(0, nb_max_augment + 1))
+    code = 0
+    for _ in range(k):
+        g = GENERATOR_CODES[int(rng.integers(0, len(GENERATOR_CODES)))]
+        code = int(D4_TABLE[g, code])
+    return code

@@ -2,18 +2,20 @@
 to the window, 8x test-time augmentation in one batched forward, threshold.
 
 Port of ``deepcalcium_tpu.train.evaluate`` (``_image_eval_body``,
-``make_movie_evaluator``, ``make_summary_evaluator``, ``reflect_pad_to``).
-The JAX package compiles each evaluator into one graph; here the same steps
-run eagerly on the device of the tensors they are given, so the builders
-only check shapes and close over the model.
+``make_movie_evaluator``, ``make_summary_evaluator``, ``reflect_pad_to``,
+``predict_batched``). The JAX package compiles each evaluator into one
+graph; here the same steps run eagerly on the device of the tensors they are
+given, so the builders only check shapes and close over the model.
 """
 
+import numpy as np
 import torch
 
 from deepcalcium_torch.ops.augment import tta_collapse, tta_expand
 from deepcalcium_torch.ops.summary import movie_summary_fast
 
-__all__ = ["reflect_pad_to", "make_movie_evaluator", "make_summary_evaluator"]
+__all__ = ["reflect_pad_to", "make_movie_evaluator", "make_summary_evaluator",
+           "predict_batched"]
 
 
 def _reflect_index(n: int, size: int, device) -> torch.Tensor:
@@ -120,3 +122,23 @@ def make_movie_evaluator(forward, movie_shape, window=(512, 512), tta=True,
         return mask, prob, mean
 
     return evaluate
+
+
+def predict_batched(fwd, images, device, window=(512, 512), max_batch=None):
+    """Predict a list of (H_i, W_i) images; returns same-shaped float32
+    numpy probability maps.
+
+    Each image is copied to ``device``, where ``fwd``'s net lives, and
+    reflect-padded to ``window`` at the bottom and right; the stack runs
+    through ``fwd`` ((B, H, W) -> (B, H, W)) in slabs of ``max_batch`` (all at once by default); each map
+    is cropped back to its image. Unlike the JAX package, the last slab is
+    not zero-padded to ``max_batch``: there is no compiled shape to keep.
+    """
+    hw, ww = window
+    batch = torch.stack([reflect_pad_to(torch.as_tensor(
+        np.ascontiguousarray(s, np.float32), device=device), hw, ww)
+        for s in images])
+    step = max_batch or len(images)
+    probs = torch.cat([fwd(batch[i:i + step])
+                       for i in range(0, len(images), step)]).cpu().numpy()
+    return [p[: s.shape[0], : s.shape[1]] for p, s in zip(probs, images)]

@@ -1,0 +1,220 @@
+"""Training step and epoch-loop utilities.
+
+Port of ``deepcalcium_tpu.train.trainer``:
+
+- the optimizer is ``torch.optim.Adam`` with optax's defaults (Adam(2e-3),
+  betas (0.9, 0.999), eps 1e-8), or ``AdamW`` whose decay falls on conv and
+  transpose-conv weights only, as the JAX package masks it to ``kernel``
+  leaves;
+- the learning rate is read and set through ``param_groups`` between
+  epochs, where the JAX package injects it through
+  ``optax.inject_hyperparams``;
+- one train step is a training forward, the mean loss, a backward and an
+  optimizer step; its 7 neuron metrics and the loss stay on the device as
+  float32 scalars until the caller fetches them once per epoch.
+
+The JAX package's ``make_multi_step`` (a K-step ``lax.scan``) and
+``stable_apply_fn`` work around dispatch latency and jit caches that
+PyTorch's eager execution does not have, and are not ported.
+"""
+
+import numpy as np
+import torch
+
+from deepcalcium_torch.models.unet2d import jax_tree, torch_tensors
+from deepcalcium_torch.ops import losses as L
+
+__all__ = ["make_optimizer", "current_lr", "set_lr", "ReduceLROnPlateau",
+           "CosineDecay", "make_train_step", "ema_update", "make_eval_forward",
+           "optax_state", "load_optax_state_"]
+
+# optax.adam's defaults.
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+def make_optimizer(model, learning_rate: float = 2e-3,
+                   weight_decay: float = 0.0):
+    """Adam(``learning_rate``) over ``model``'s parameters, or AdamW with
+    decoupled decay when ``weight_decay`` > 0. Like the JAX package's
+    kernels-only mask, the decay group holds the conv and transpose-conv
+    weights (the head's included); biases and BN gamma/beta are never
+    decayed."""
+    if not weight_decay:
+        return torch.optim.Adam(model.parameters(), lr=learning_rate,
+                                betas=ADAM_BETAS, eps=ADAM_EPS)
+    decay, rest = [], []
+    for name, p in model.named_parameters():
+        layer, attr = name.rsplit(".", 1)
+        is_kernel = attr == "weight" and not layer.endswith("_bn")
+        (decay if is_kernel else rest).append(p)
+    return torch.optim.AdamW(
+        [{"params": decay, "weight_decay": weight_decay},
+         {"params": rest, "weight_decay": 0.0}],
+        lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
+def _f32(v):
+    return np.asarray(v, np.float32)
+
+
+def optax_state(model, optimizer) -> dict:
+    """The optimizer's state in optax's state-dict layout of
+    ``inject_hyperparams(adam)`` (or ``adamw``) over ``model``'s params in
+    the JAX package's layout, as the JAX package checkpoints it::
+
+        {"count": int32, "hyperparams": {"b1", "b2", "eps", "eps_root",
+         "learning_rate"[, "weight_decay"]}, "hyperparams_states": {},
+         "inner_state": {"0": {"count", "mu", "nu"}, "1": {}[, "2": {}]}}
+
+    AdamW's chain (adam, masked decay, lr scale) has the masked state
+    ``{"inner_state": {}}`` at "1" and an empty one at "2"."""
+    named = dict(model.named_parameters())
+    states = {n: optimizer.state.get(p, {}) for n, p in named.items()}
+    steps = {int(s["step"]) for s in states.values() if s}
+    if len(steps) > 1:
+        raise ValueError(f"parameters are at different Adam steps: {steps}")
+    count = np.asarray(steps.pop() if steps else 0, np.int32)
+
+    def moments(key):
+        return jax_tree(model, {n: s[key] if s else torch.zeros_like(named[n])
+                                for n, s in states.items()})
+
+    group = optimizer.param_groups[0]
+    b1, b2 = group["betas"]
+    hyper = {"b1": _f32(b1), "b2": _f32(b2), "eps": _f32(group["eps"]),
+             "eps_root": _f32(0.0), "learning_rate": _f32(group["lr"])}
+    adam = {"count": count, "mu": moments("exp_avg"),
+            "nu": moments("exp_avg_sq")}
+    if isinstance(optimizer, torch.optim.AdamW):
+        hyper["weight_decay"] = _f32(max(g["weight_decay"]
+                                         for g in optimizer.param_groups))
+        inner = {"0": adam, "1": {"inner_state": {}}, "2": {}}
+    else:
+        inner = {"0": adam, "1": {}}
+    return {"count": count, "hyperparams": hyper, "hyperparams_states": {},
+            "inner_state": inner}
+
+
+@torch.no_grad()
+def load_optax_state_(model, optimizer, opt_state: dict):
+    """Restore Adam's moments, step count and learning rate from optax's
+    state dict (the inverse of :func:`optax_state`), in place."""
+    if ("weight_decay" in opt_state["hyperparams"]) != isinstance(
+            optimizer, torch.optim.AdamW):
+        raise ValueError("the checkpoint's optimizer and this one differ in "
+                         "weight decay (Adam against AdamW)")
+    adam = opt_state["inner_state"]["0"]
+    mu = torch_tensors(model, adam["mu"])
+    nu = torch_tensors(model, adam["nu"])
+    step = float(adam["count"])
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device)}
+    set_lr(optimizer, float(opt_state["hyperparams"]["learning_rate"]))
+    return optimizer
+
+
+def current_lr(optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])
+
+
+def set_lr(optimizer, lr: float):
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+    return optimizer
+
+
+class ReduceLROnPlateau:
+    """Host-side LR plateau policy: monitor a metric in max mode, halve the
+    LR after ``patience`` epochs without improvement, floor at ``min_lr``."""
+
+    def __init__(self, factor=0.5, patience=5, min_lr=1e-4, mode="max"):
+        self.factor = factor
+        self.patience = patience
+        self.min_lr = min_lr
+        self.sign = 1.0 if mode == "max" else -1.0
+        self.best = -np.inf
+        self.wait = 0
+
+    def update(self, value: float, lr: float) -> float:
+        if self.sign * value > self.best:
+            self.best = self.sign * value
+            self.wait = 0
+            return lr
+        self.wait += 1
+        if self.wait >= self.patience:
+            self.wait = 0
+            return max(self.min_lr, lr * self.factor)
+        return lr
+
+
+class CosineDecay:
+    """Host-side cosine decay from ``base_lr`` to ``min_lr`` along half a
+    cosine over ``total_epochs``."""
+
+    def __init__(self, base_lr: float, total_epochs: int, min_lr: float = 1e-4):
+        if total_epochs < 1:
+            raise ValueError(f"total_epochs={total_epochs} must be >= 1")
+        self.base_lr = base_lr
+        self.total_epochs = total_epochs
+        self.min_lr = min_lr
+
+    def lr_at(self, epoch: int) -> float:
+        """LR to use *for* ``epoch`` (epoch 0 -> base_lr)."""
+        frac = min(max(epoch, 0), self.total_epochs) / self.total_epochs
+        return self.min_lr + 0.5 * (self.base_lr - self.min_lr) * (
+            1.0 + float(np.cos(np.pi * frac)))
+
+
+def make_train_step(model, loss_fn, optimizer, metric_fns=None):
+    """Build the train step of ``model`` (a ``UNet2DS``).
+
+    # Arguments
+        loss_fn: f(yt, yp) -> tensor of any shape; its mean is the loss.
+        optimizer: e.g. :func:`make_optimizer` over ``model``.
+        metric_fns: {name: f(yt, yp) -> scalar}; the 7 neuron metrics by
+            default.
+
+    # Returns
+        step(x, y, generator=None) -> {name: float32 0-d tensor} on the
+        device: the metrics of the forward taken before the update, and
+        ``"loss"``. The parameters, BN running buffers and optimizer state
+        are updated in place; each ``.grad`` holds this step's gradient.
+    """
+    metric_fns = metric_fns if metric_fns is not None else dict(L.NEURON_METRICS)
+
+    def step(x, y, generator=None):
+        probs = model(x, train=True, generator=generator)
+        loss = loss_fn(y, probs).mean()
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            p = probs.detach()
+            metrics = {k: fn(y, p).mean().float() for k, fn in metric_fns.items()}
+            metrics["loss"] = loss.detach().float()
+        return metrics
+
+    return step
+
+
+@torch.no_grad()
+def ema_update(ema, params, decay: float):
+    """Polyak averaging in place over parameters only:
+    ``ema <- decay * ema + (1 - decay) * params``."""
+    for e, p in zip(ema, params):
+        e.mul_(decay).add_(p.detach(), alpha=1.0 - decay)
+
+
+def make_eval_forward(model):
+    """Inference forward: (B, H, W) -> (B, H, W) probabilities with the BN
+    running statistics."""
+
+    @torch.inference_mode()
+    def fwd(x):
+        return model(x, train=False)
+
+    return fwd

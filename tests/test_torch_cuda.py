@@ -83,3 +83,43 @@ def test_movie_evaluator_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(prob, cpu[1], rtol=1e-4, atol=1e-5)
     near = (cpu[1] - 0.5).abs() < 1e-4
     assert torch.equal(mask[~near], cpu[0][~near])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool2_tie_routing_on_card(cuda_device, dtype):
+    """The 2x2 max-pool gradient on the card goes to the first maximum of
+    each window in row-major order, as the JAX package's dense vjp routes
+    it: all-equal windows, a (1, 2; 2, 0) window and ReLU zeros."""
+    from chip_smoke import first_max_grad
+    from deepcalcium_torch.models.blocks import maxpool2
+
+    rng = np.random.default_rng(5)
+    z = np.maximum(rng.standard_normal((2, 3, 8, 8)), 0).astype(np.float32)
+    z[0, 0, 0:2, 0:2] = [[1.0, 2.0], [2.0, 0.0]]
+    z[1, 2, 4:8, 2:6] = 3.0
+    ct = torch.from_numpy(rng.standard_normal((2, 3, 4, 4)).astype(np.float32))
+    zt = torch.from_numpy(z).to(cuda_device, dtype).requires_grad_()
+    maxpool2(zt).backward(ct.to(cuda_device, dtype))
+    want = first_max_grad(z, ct.to(dtype).float().numpy())
+    np.testing.assert_array_equal(zt.grad.float().cpu().numpy(), want)
+
+
+def test_bf16_train_step_lowers_the_loss_on_card(cuda_device):
+    """5 bf16 train steps (nfb=4, dropout on) on one fixed batch: the loss
+    stays finite and falls."""
+    from deepcalcium_torch.ops.losses import binary_crossentropy
+    from deepcalcium_torch.train import trainer
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 32)).astype(np.float32))
+    y = torch.zeros(4, 32, 32)
+    y[:, 8:24, 8:24] = 1.0
+    model = UNet2DS(nfb=4, compute_dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    step = trainer.make_train_step(model, binary_crossentropy,
+                                   trainer.make_optimizer(model, 2e-3))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x, y = x.to(cuda_device), y.to(cuda_device)
+    losses = [step(x, y, gen)["loss"].item() for _ in range(5)]
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0]

@@ -195,3 +195,26 @@ def test_unet2dsummary_refuses_what_is_not_ported(tmp_path, tiny_net, movie):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             UNet2DSummary(cpdir=str(tmp_path / "cp"))
+
+
+@pytest.mark.parametrize("max_batch", [None, 2])
+def test_predict_batched_matches_jax(tiny_net, max_batch):
+    """Images of several sizes (a rot90 view among them), reflect-padded to
+    one window, run in slabs and cropped back: prob rtol 1e-4, atol 1e-5."""
+    from deepcalcium_tpu.train.trainer import make_eval_forward
+    from deepcalcium_torch.train.trainer import make_eval_forward as tfwd
+
+    params, state = tiny_net
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((40, 48)).astype(np.float32)
+    images = [base, np.rot90(base), np.fliplr(base),
+              rng.standard_normal((48, 48)).astype(np.float32), base[:17, :30]]
+    apply_fn = functools.partial(junet.apply, compute_dtype=None,
+                                 precision=HIGHEST)
+    ref = jev.predict_batched(make_eval_forward(apply_fn), params, state,
+                              images, window=(48, 48), max_batch=max_batch)
+    out = tev.predict_batched(tfwd(from_jax_params(params, state)), images,
+                              "cpu", window=(48, 48), max_batch=max_batch)
+    for o, r, img in zip(out, ref, images):
+        assert o.shape == img.shape and o.dtype == np.float32
+        np.testing.assert_allclose(o, r, rtol=1e-4, atol=1e-5)

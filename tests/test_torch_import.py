@@ -27,7 +27,12 @@ def test_port_and_chip_smoke_never_import_jax():
         "import deepcalcium_torch.models.unet_2d_summary\n"
         "import deepcalcium_torch.metrics.neurofinder\n"
         "import deepcalcium_torch.ops.mask_summary\n"
+        "import deepcalcium_torch.ops.losses\n"
         "import deepcalcium_torch.ops._build\n"
+        "import deepcalcium_torch.train.callbacks\n"
+        "import deepcalcium_torch.train.sampler\n"
+        "import deepcalcium_torch.train.trainer\n"
+        "import deepcalcium_torch.utils.profiling\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu'))\n"
