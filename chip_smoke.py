@@ -306,7 +306,8 @@ def phase_main(dev, seed, t):
 
     model = from_jax_params(params, state, torch.bfloat16, dev).eval().fold()
     plain_mean, _ = movie_summary(movie)
-    pmask, pprob = make_summary_evaluator(model, (WINDOW, WINDOW))(plain_mean)
+    pmask, pprob = make_summary_evaluator(model, (WINDOW, WINDOW),
+                                          window=(WINDOW, WINDOW))(plain_mean)
     if not (np.array_equal(pprob.cpu().numpy(), prob)
             and np.array_equal(pmask.cpu().numpy(), mask)):
         raise AssertionError("prob/mask differ from the plain-summary run")
@@ -320,7 +321,7 @@ def phase_main(dev, seed, t):
 
     # Timing with cuDNN's default settings.
     torch.backends.cudnn.deterministic = False
-    evaluate = make_movie_evaluator(model, movie.shape)
+    evaluate = make_movie_evaluator(model, movie.shape, window=(WINDOW, WINDOW))
     views = torch.zeros((8, WINDOW, WINDOW), device=dev)
     with torch.inference_mode():
         ms = _timed_ms(lambda: evaluate(movie), 10)
@@ -332,7 +333,8 @@ def phase_main(dev, seed, t):
           f"forward alone {fwd_ms:.3f} ms ({flops / fwd_ms / 1e9:.1f} "
           f"TFLOP/s bf16); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches, ms
+    return launches, ms, {"movie": movie, "params": params, "state": state,
+                          "mask": mask, "prob": prob}
 
 
 def assert_matches_golden(gold, metrics, grads, params, state):
@@ -585,6 +587,407 @@ def phase_fit(dev, seed):
     return launches, numbers
 
 
+# --- The dataset-file inference path: fold, streaming, tiled, predict ------
+
+FOLD_CHUNK = 256      # the default chunk of the streaming and tiled evaluates
+TILED_FRAMES, TILED_SIDE = 1000, 1024
+
+
+def _poison(dtype):
+    import torch
+
+    return (torch.finfo(dtype).max if dtype.is_floating_point
+            else torch.iinfo(dtype).max)
+
+
+def check_fold(dev, movie, chunk, misaligned=False):
+    """Fold ``movie`` (on the card) through one fixed-size staging buffer
+    whose frames past n_valid hold the dtype's maximum, with K1's fold and
+    with the plain fold, and hold both against one K1 call. Integer movies:
+    totals equal and the mean bitwise K1's; float32: within 1 ulp. Maxima
+    equal. Returns the largest absolute error of the mean."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.ops.summary import (finalise_fold,
+                                               fold_accumulators, movie_fold,
+                                               movie_fold_cuda,
+                                               movie_summary_cuda)
+
+    t = movie.shape[0]
+    shape = (chunk,) + tuple(movie.shape[1:])
+    if misaligned:
+        # A contiguous view 2 bytes past a 16-byte boundary: scalar loads.
+        flat = torch.empty(math.prod(shape) + 1, dtype=movie.dtype, device=dev)
+        stage = flat[1:].view(shape)
+    else:
+        stage = torch.empty(shape, dtype=movie.dtype, device=dev)
+    k_total, k_max = fold_accumulators(shape[1:], movie.dtype, dev)
+    p_total, p_max = fold_accumulators(shape[1:], movie.dtype, dev)
+    for i in range(0, t, chunk):
+        n = min(chunk, t - i)
+        stage[:n].copy_(movie[i:i + n])
+        stage[n:].fill_(_poison(movie.dtype))
+        movie_fold_cuda(stage, n, k_total, k_max)
+        movie_fold(stage, n, p_total, p_max)
+    mean = finalise_fold(k_total, t)
+    ref_mean, ref_max = movie_summary_cuda(movie)
+    torch.cuda.synchronize()
+    if not (torch.equal(k_max, p_max) and torch.equal(k_max, ref_max)):
+        raise AssertionError(f"fold max differs: {movie.dtype} {tuple(movie.shape)}")
+    if movie.dtype.is_floating_point:
+        np.testing.assert_array_max_ulp(mean.cpu().numpy(),
+                                        ref_mean.cpu().numpy(), maxulp=1)
+        np.testing.assert_array_max_ulp(
+            finalise_fold(p_total, t).cpu().numpy(), ref_mean.cpu().numpy(),
+            maxulp=1)
+    elif not (torch.equal(k_total, p_total) and torch.equal(mean, ref_mean)):
+        raise AssertionError(f"fold not bitwise K1's: {movie.dtype} "
+                             f"{tuple(movie.shape)}")
+    return (mean - ref_mean).abs().max().item()
+
+
+def phase_fold(dev, seed):
+    """K1's fold against the plain fold and one K1 call; then its time on
+    one 256x512^2 int16 chunk beside the plain fold's and its bound."""
+    import torch
+
+    from deepcalcium_torch.ops.summary import (fold_accumulators, movie_fold,
+                                               movie_fold_cuda)
+
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(dtype)
+
+    cases = [
+        ("int16", lambda: ints(-2000, 30000, (FRAMES, WINDOW, WINDOW), torch.int16), FOLD_CHUNK, False),
+        ("uint16", lambda: ints(0, 65536, (FRAMES, WINDOW, WINDOW), torch.uint16), FOLD_CHUNK, False),
+        ("float32", lambda: torch.rand((FRAMES, WINDOW, WINDOW), generator=g,
+                                       device=dev) * 4000 - 2000, FOLD_CHUNK, False),
+        ("int16 misaligned base", lambda: ints(-100, 3000, (301, 64, 72), torch.int16), 64, True),
+        ("int16 H*W tail", lambda: ints(-100, 3000, (77, 19, 137), torch.int16), 16, False),
+        ("uint16 H*W tail, misaligned", lambda: ints(0, 65536, (45, 9, 131), torch.uint16), 8, True),
+        ("float32 H*W tail", lambda: torch.randn((33, 13, 29), generator=g, device=dev) * 100, 7, False),
+    ]
+    worst = 0.0
+    for label, make, chunk, misaligned in cases:
+        movie = make()
+        err = check_fold(dev, movie, chunk, misaligned)
+        worst = max(worst, err)
+        print(f"fold {label} {tuple(movie.shape)} in chunks of {chunk} "
+              f"(tail {movie.shape[0] % chunk or chunk}, staging poisoned past "
+              f"n_valid): K1 fold = plain fold = one K1 call "
+              f"({'1 ulp' if movie.dtype.is_floating_point else 'bitwise'}), "
+              f"mean max_abs_err {err:.3g}", flush=True)
+        del movie
+        torch.cuda.empty_cache()
+
+    chunk = ints(0, 2000, (FOLD_CHUNK, WINDOW, WINDOW), torch.int16)
+    total, mx = fold_accumulators((WINDOW, WINDOW), torch.int16, dev)
+    p1 = _timed_ms(lambda: movie_fold(chunk, FOLD_CHUNK, total, mx), 10)
+    k1 = _timed_ms(lambda: movie_fold_cuda(chunk, FOLD_CHUNK, total, mx), 50)
+    k2 = _timed_ms(lambda: movie_fold_cuda(chunk, FOLD_CHUNK, total, mx), 50)
+    p2 = _timed_ms(lambda: movie_fold(chunk, FOLD_CHUNK, total, mx), 10)
+    # The chunk read once; the int64 totals and the f32 max read and written.
+    nbytes = chunk.numel() * 2 + WINDOW * WINDOW * 2 * (8 + 4)
+    timing = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+              "shape": list(chunk.shape)}
+    print(f"fold time, one {tuple(chunk.shape)} int16 chunk: K1 fold "
+          f"{timing['ms']:.4f} ms ({nbytes / timing['ms'] / 1e6:.1f} GB/s), "
+          f"plain {timing['plain_ms']:.4f} ms; bound {timing['bound_ms']:.4f} "
+          f"ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
+    return worst, timing
+
+
+def phase_stream(dev, main):
+    """``evaluate_movie_streaming`` of the phase-5 movie held as a host
+    array: its mean bitwise K1's, its mask and prob equal to
+    ``evaluate_movie`` on the device copy; then its time, and the times of
+    its copies alone."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.unet_2d_summary import UNet2DSummary
+    from deepcalcium_torch.ops.summary import (fold_accumulators,
+                                               movie_fold_cuda,
+                                               movie_summary_cuda)
+    from deepcalcium_torch.train.evaluate import evaluate_movie_streaming
+
+    host = main["movie"].cpu().numpy()
+    model = UNet2DSummary(compute_dtype=torch.bfloat16)._inference_net(
+        main["params"], main["state"], (WINDOW, WINDOW), "auto")
+    torch.backends.cudnn.deterministic = True
+    movie_fold_cuda.launches = movie_summary_cuda.launches = 0
+    mask, prob, mean = evaluate_movie_streaming(
+        model, host, window=(WINDOW, WINDOW), chunk=FOLD_CHUNK, device=dev)
+    launches = movie_fold_cuda.launches
+    if launches != math.ceil(FRAMES / FOLD_CHUNK) or movie_summary_cuda.launches:
+        raise AssertionError(f"streaming evaluate launched K1's fold "
+                             f"{launches} times")
+    k1_mean, _ = movie_summary_cuda(main["movie"])
+    if not np.array_equal(mean, k1_mean.cpu().numpy()):
+        raise AssertionError("streaming mean is not K1's, bit for bit")
+    if not (np.array_equal(mask, main["mask"]) and np.array_equal(prob, main["prob"])):
+        raise AssertionError("streaming mask/prob differ from evaluate_movie")
+    torch.backends.cudnn.deterministic = False
+
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_movie_streaming(model, host, window=(WINDOW, WINDOW),
+                                 chunk=FOLD_CHUNK, device=dev)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    # Its copies alone: pageable -> pinned on the host clock, pinned ->
+    # device and the folds by CUDA events.
+    chunk_shape = (FOLD_CHUNK, WINDOW, WINDOW)
+    pinned = torch.empty(chunk_shape, dtype=torch.int16, pin_memory=True)
+    staged = torch.empty(chunk_shape, dtype=torch.int16, device=dev)
+    src = torch.from_numpy(host)
+    t0 = time.perf_counter()
+    for i in range(0, FRAMES, FOLD_CHUNK):
+        n = min(FOLD_CHUNK, FRAMES - i)
+        pinned[:n].copy_(src[i:i + n])
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    h2d_ms = _timed_ms(lambda: [staged.copy_(pinned, non_blocking=True)
+                                for _ in range(0, FRAMES, FOLD_CHUNK)], 3)
+    total, _ = fold_accumulators((WINDOW, WINDOW), torch.int16, dev,
+                                 track_max=False)
+    fold_ms = _timed_ms(lambda: [movie_fold_cuda(staged, FOLD_CHUNK, total)
+                                 for _ in range(0, FRAMES, FOLD_CHUNK)], 3)
+    numbers = {"ms": runs, "pageable_to_pinned_ms": stage_ms,
+               "host_to_device_ms": h2d_ms, "folds_ms": fold_ms,
+               "host_bytes": host.nbytes}
+    print(f"streaming evaluate of the phase-5 movie as a host array, chunk "
+          f"{FOLD_CHUNK}: K1 fold launches {launches}; mean bitwise K1's, "
+          f"mask/prob equal to evaluate_movie on the device copy; "
+          f"{', '.join(f'{r:.1f}' for r in runs)} ms; alone: pageable->pinned "
+          f"{stage_ms:.1f} ms ({host.nbytes / stage_ms / 1e6:.1f} GB/s), "
+          f"pinned->device {h2d_ms:.1f} ms ({host.nbytes / h2d_ms / 1e6:.1f} "
+          f"GB/s), {math.ceil(FRAMES / FOLD_CHUNK)} folds {fold_ms:.3f} ms",
+          flush=True)
+    return launches, numbers
+
+
+def straightforward_tiled_prob(model, movie, window):
+    """The tiled evaluate written out plainly: the plain summary, the
+    host z-norm, each window tile's 8 dihedral views through the net one
+    tile at a time, each view inverted, the 8 averaged, and the tiles'
+    overlaps averaged."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.ops.summary import movie_summary
+
+    m = movie_summary(movie)[0].cpu().numpy()
+    z = (m - np.mean(m)) / max(float(np.std(m)), 1e-12)
+    h, w = z.shape
+    overlap = min(64, window // 2)
+
+    def starts(n):
+        return sorted(set(range(0, n - window + 1, window - overlap)) | {n - window})
+
+    acc = np.zeros((h, w))
+    cnt = np.zeros((h, w))
+    for y in starts(h):
+        for x in starts(w):
+            tile = z[y:y + window, x:x + window]
+            views = ([np.rot90(tile, k) for k in range(4)]
+                     + [np.rot90(tile.T, k) for k in range(4)])
+            with torch.inference_mode():
+                p = model(torch.from_numpy(np.ascontiguousarray(views)).to(movie.device))
+            p = p.cpu().numpy()
+            back = ([np.rot90(p[k], -k) for k in range(4)]
+                    + [np.rot90(p[4 + k], -k).T for k in range(4)])
+            acc[y:y + window, x:x + window] += np.mean(back, axis=0)
+            cnt[y:y + window, x:x + window] += 1
+    return (acc / cnt).astype(np.float32)
+
+
+def phase_tiled(dev, main, seed):
+    """``UNet2DSummary.evaluate_movie`` on a host int16 movie of
+    1000x1024x1024: a 3x3 grid of 512^2 tiles at overlap 64, 72 views.
+    Checked at float32 with TF32 off against the fused path on a 512^2
+    movie and against a straightforward composition on the 1024^2 one;
+    timed at bfloat16."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.unet2d import from_jax_params
+    from deepcalcium_torch.models.unet_2d_summary import UNet2DSummary
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+    from deepcalcium_torch.train.evaluate import (evaluate_movie_tiled,
+                                                  make_movie_evaluator,
+                                                  tile_grid)
+
+    m5 = main["movie"][:TILED_FRAMES]
+    top = torch.cat([m5, m5.flip(2)], dim=2)
+    movie = torch.cat([top, top.flip(1)], dim=1).contiguous()   # 1000x1024^2
+    host = movie.cpu().numpy()
+    params, state = main["params"], main["state"]
+    ys, xs = tile_grid((TILED_SIDE, TILED_SIDE), (WINDOW, WINDOW))
+    nviews = 8 * len(ys) * len(xs)
+
+    wrapper = UNet2DSummary(compute_dtype=torch.bfloat16)
+    movie_fold_cuda.launches = movie_summary_cuda.launches = 0
+    mask, prob = wrapper.evaluate_movie(host, params=params, state=state,
+                                        window_shape=(WINDOW, WINDOW))
+    launches = movie_fold_cuda.launches
+    if launches != math.ceil(TILED_FRAMES / FOLD_CHUNK) or movie_summary_cuda.launches:
+        raise AssertionError(f"tiled evaluate launched K1's fold {launches} times")
+    if mask.shape != (TILED_SIDE, TILED_SIDE) or not np.isfinite(prob).all() \
+            or not set(np.unique(mask)) <= {0, 1}:
+        raise AssertionError("tiled evaluate: bad shape, non-finite prob or "
+                             "non-binary mask")
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wrapper.evaluate_movie(host, params=params, state=state,
+                               window_shape=(WINDOW, WINDOW))
+        runs.append((time.perf_counter() - t0) * 1e3)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32 = from_jax_params(params, state, device=dev).eval().fold()
+        # (a) one tile: the tiled path on the 512^2 movie = the fused path.
+        tmask, tprob, _ = evaluate_movie_tiled(
+            f32, main["movie"], window=(WINDOW, WINDOW), chunk=FOLD_CHUNK,
+            device=dev)
+        fmask, fprob, _ = make_movie_evaluator(
+            f32, main["movie"].shape, window=(WINDOW, WINDOW))(main["movie"])
+        fprob = fprob.cpu().numpy()
+        # rtol 1e-4, atol 1e-5: float32 sums in another order (another
+        # batch, so other cuDNN algorithms).
+        np.testing.assert_allclose(tprob, fprob, rtol=1e-4, atol=1e-5,
+                                   err_msg="tiled vs fused at 512^2")
+        far = np.abs(fprob - 0.5) >= 1e-4
+        if not np.array_equal(tmask[far], fmask.cpu().numpy()[far]):
+            raise AssertionError("tiled mask differs from the fused one at 512^2")
+        # (b) 1024^2: the tiled path = the straightforward composition.
+        _, tprob2, _ = evaluate_movie_tiled(f32, host, window=(WINDOW, WINDOW),
+                                            chunk=FOLD_CHUNK, device=dev)
+        want = straightforward_tiled_prob(f32, movie, WINDOW)
+        np.testing.assert_allclose(tprob2, want, rtol=1e-4, atol=1e-5,
+                                   err_msg="tiled vs straightforward at 1024^2")
+        err = (float(np.abs(tprob - fprob).max()),
+               float(np.abs(tprob2 - want).max()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+    numbers = {"ms": runs, "views": nviews, "grid": [len(ys), len(xs)],
+               "f32_max_abs_err_vs_fused_512": err[0],
+               "f32_max_abs_err_vs_straightforward_1024": err[1],
+               "mask_fraction": float(mask.mean())}
+    print(f"tiled evaluate, host int16 {tuple(host.shape)}, {len(ys)}x{len(xs)} "
+          f"tiles, {nviews} views, bf16: K1 fold launches {launches}; "
+          f"{', '.join(f'{r:.1f}' for r in runs)} ms; f32 TF32 off: tiled = "
+          f"fused at 512^2 (prob max_abs_err {err[0]:.3g}), tiled = "
+          f"straightforward at 1024^2 ({err[1]:.3g}), rtol 1e-4 atol 1e-5",
+          flush=True)
+    return launches, numbers, movie
+
+
+def phase_predict(dev, main, tiled_movie):
+    """``UNet2DSummary.predict(augmentation=True)`` through the injection
+    points, from a checkpoint of the phase-5 weights: eight 512^2
+    summaries, one 498x467 (reflect-padded) and one 1024^2 (tiled); then
+    ``nf_submit`` and its file read back. The random net puts nearly every
+    pixel above 0.5, so predict thresholds at the 98th percentile of phase
+    5's prob: the masks then hold many regions, and the submission stays
+    small."""
+    import logging
+    import re
+
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.data.nf import nf_submit
+    from deepcalcium_torch.metrics.neurofinder import label_mask
+    from deepcalcium_torch.models.unet_2d_summary import UNet2DSummary
+    from deepcalcium_torch.ops.summary import movie_summary_cuda
+    from deepcalcium_torch.train.checkpoints import save_checkpoint
+
+    def znorm(mean):
+        z = (mean - mean.mean()) / mean.std(correction=0).clamp_min(1e-12)
+        return z.cpu().numpy()
+
+    base = znorm(movie_summary_cuda(main["movie"])[0])
+    S = {f"neurofinder.0{k}.00": np.ascontiguousarray(
+        np.rot90(base, k % 4) if k < 4 else np.rot90(base.T, k % 4))
+        for k in range(8)}
+    S["neurofinder.08.00"] = np.ascontiguousarray(base[7:505, 31:498])
+    S["neurofinder.09.00.test"] = znorm(movie_summary_cuda(tiled_movie)[0])
+
+    out = REPO / "build" / "chip_smoke_predict"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ckpt = str(out / "unet2ds_random.ckpt")
+    save_checkpoint(ckpt, main["params"], main["state"])
+    threshold = float(np.quantile(main["prob"], 0.98))
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    timer_log = logging.getLogger("predict_forward")
+    timer_log.addHandler(handler)
+    timer_log.setLevel(logging.INFO)
+    try:
+        wrapper = UNet2DSummary(cpdir=str(out), compute_dtype=torch.bfloat16,
+                                dataset_name_func=lambda n: n,
+                                series_summary_func=lambda n: S[n])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Mp, names = wrapper.predict(list(S), ckpt, window_shape=(WINDOW, WINDOW),
+                                    augmentation=True, threshold=threshold)
+        predict_s = time.perf_counter() - t0
+    finally:
+        timer_log.removeHandler(handler)
+    views_per_s = float(re.search(r"\(([\d.]+) views/s\)",
+                                  records[-1].getMessage()).group(1))
+    if names != list(S) or [m.shape for m in Mp] != [s.shape for s in S.values()]:
+        raise AssertionError("predict returned the wrong names or shapes")
+    # The identity view of the phase-5 summary against phase 5's own
+    # evaluate: bf16 forwards at another batch size (other cuDNN
+    # algorithms), so pixels may differ only where phase 5's prob lies
+    # within 0.02 (5 bf16 steps near 0.5) of the threshold.
+    differ = Mp[0] != (main["prob"] > threshold)
+    if (differ & (np.abs(main["prob"] - threshold) >= 0.02)).any():
+        raise AssertionError("predict's mask differs from evaluate_movie's "
+                             "away from the threshold")
+
+    sub_path = out / "submission.json"
+    nf_submit(Mp, names, str(sub_path))
+    with open(sub_path) as fp:
+        sub = json.load(fp)
+    if [e["dataset"] for e in sub] != [n.split(".", 1)[1] for n in names]:
+        raise AssertionError("submission datasets differ")
+    regions = []
+    for e, mp in zip(sub, Mp):
+        nb = int(label_mask(mp).max())
+        want = nb if nb else 1
+        if len(e["regions"]) != want or (nb == 0 and e["regions"] != [{"coordinates": [[0, 0]]}]):
+            raise AssertionError(f"submission {e['dataset']}: "
+                                 f"{len(e['regions'])} regions, want {want}")
+        regions.append(len(e["regions"]))
+    views = 8 * 9 + 8 * 9
+    lo, hi = np.quantile(main["prob"], [0.05, 0.95])
+    print(f"predict 8x TTA through the injection points, 8 summaries at "
+          f"512^2 + 498x467 + 1024^2 tiled ({views} views), threshold "
+          f"{threshold:.4f} (phase 5's prob spans {lo:.4f}-{hi:.4f}, 5th-95th "
+          f"percentile): {views_per_s:.1f} views/s in its forward, "
+          f"{predict_s:.2f} s the call; submission of {len(sub)} datasets "
+          f"read back, regions {regions}; mask differs from evaluate_movie's "
+          f"on {differ.mean():.4%} of pixels, all within 0.02 of the "
+          f"threshold", flush=True)
+    return {"views_per_s": views_per_s, "views": views,
+            "seconds": predict_s, "threshold": threshold, "regions": regions,
+            "mask_differs_from_evaluate": float(differ.mean())}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -593,30 +996,52 @@ def main(argv=None):
     import torch
 
     t0 = time.perf_counter()
-    dev, card = phase_device()
-    phase_build()
-    err, timing = phase_k1(dev, args.seed, FRAMES)
-    phase_golden(dev)
-    eval_launches, eval_ms = phase_main(dev, args.seed, FRAMES)
-    golden_errs = phase_train_golden(dev)
-    fit_launches, fit = phase_fit(dev, args.seed)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t, 2)
+        return out
+
+    dev, card = timed("device", phase_device)
+    timed("build", phase_build)
+    err, timing = timed("k1", phase_k1, dev, args.seed, FRAMES)
+    timed("golden", phase_golden, dev)
+    eval_launches, eval_ms, main_ctx = timed("evaluate", phase_main, dev,
+                                             args.seed, FRAMES)
+    golden_errs = timed("train_golden", phase_train_golden, dev)
+    fit_launches, fit = timed("fit", phase_fit, dev, args.seed)
+    fold_err, fold = timed("fold", phase_fold, dev, args.seed)
+    stream_launches, stream = timed("stream", phase_stream, dev, main_ctx)
+    tiled_launches, tiled, tiled_movie = timed("tiled", phase_tiled, dev,
+                                               main_ctx, args.seed)
+    predict = timed("predict", phase_predict, dev, main_ctx, tiled_movie)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "deepcalcium_tpu"))
+    if bad:
+        raise AssertionError(f"the port imported {bad}")
     # K1's least time at the main path's shape: it must read the int16 movie
     # once and write two float32 images; its adds and compares are far
     # below the card's rate.
     k1_bytes = FRAMES * WINDOW * WINDOW * 2 + 2 * WINDOW * WINDOW * 4
+    by_path = {"evaluate": eval_launches, "fit": fit_launches,
+               "stream": stream_launches, "tiled": tiled_launches}
     print(json.dumps({"kernels": [{
-        "name": "K1 movie_summary_cuda", "route": "cuda",
+        "name": "K1 movie_summary_cuda (+ fold entry movie_fold_cuda)",
+        "route": "cuda",
         "source": "deepcalcium_torch/csrc/summary.cu",
         "replaces": "deepcalcium_tpu/ops/summary.py:94",
-        "launches": eval_launches + fit_launches,
-        "launches_by_path": {"evaluate": eval_launches, "fit": fit_launches},
-        "max_abs_err": err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(err, fold_err), "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
         "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None}],
+        "library_ms": None,
+        "fold_ms": fold["ms"], "fold_plain_ms": fold["plain_ms"],
+        "fold_bound_ms": fold["bound_ms"], "fold_shape": fold["shape"]}],
         "evaluate_ms": eval_ms, "train_golden_max_abs_err": golden_errs,
-        "fit": fit, "seconds": time.perf_counter() - t0}))
+        "fit": fit, "stream": stream, "tiled": tiled, "predict": predict,
+        "phase_seconds": phase_s, "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,18 @@
 // Occupancy is left for later: at 512x512 int16 there are 32768 vectors,
 // one thread each, far fewer than the card holds resident. A split-T pass
 // with a combine is the first optimisation to try.
+//
+// The streaming fold (dc_movie_fold) is the same reduction over frames
+// [0, n_valid) of one chunk, added into running accumulators in device
+// memory instead of finalised: int64 totals for int16/uint16, float64 for
+// float32, and a float32 running max (exact for 16-bit values). It replaces
+// the XLA updates _streaming_device_update(_mean) of
+// deepcalcium_tpu/ops/summary.py. Frames at or past n_valid are never read,
+// so a fixed-size staging buffer carries a ragged last chunk without
+// padding. Finalised as K1 finalises (the total rounded to f32 once, then
+// an IEEE division), a fold over any chunking gives K1's bits for integer
+// movies. Its bound is the same: the chunk's bytes, plus 24 bytes a pixel
+// of accumulators read and written, over the memory bandwidth.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,18 +89,14 @@ __device__ __forceinline__ void load(const T* __restrict__ src, T (&out)[N]) {
   }
 }
 
-// Reduce pixels [p, p + N) over all t_len frames; write mean and max.
+// Reduce pixels [p, p + N) over frames [0, t_len): exact totals and maxima.
 template <typename T, int N>
-__device__ __forceinline__ void reduce_pixels(const T* __restrict__ movie,
-                                              long long t_len, long long hw,
-                                              long long p,
-                                              float* __restrict__ mean,
-                                              float* __restrict__ mx) {
+__device__ __forceinline__ void reduce_pixels(
+    const T* __restrict__ movie, long long t_len, long long hw, long long p,
+    typename Acc<T>::total (&total)[N], T (&m)[N]) {
   using Part = typename Acc<T>::part;
   using Total = typename Acc<T>::total;
-  Total total[N];
   Part part[N];
-  T m[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     total[k] = 0;
@@ -127,34 +135,72 @@ __device__ __forceinline__ void reduce_pixels(const T* __restrict__ movie,
       part[k] = 0;
     }
   }
-  const float tf = static_cast<float>(t_len);
+}
+
+// K1's epilogue: write mean = f32(total) / f32(t_len) and max.
+struct Finalise {
+  float* mean;
+  float* mx;
+  long long t_len;
+  template <typename T, typename Total, int N>
+  __device__ __forceinline__ void operator()(long long p, const Total (&total)[N],
+                                             const T (&m)[N]) const {
+    const float tf = static_cast<float>(t_len);
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    mean[p + k] = __fdiv_rn(round_f32(total[k]), tf);
-    mx[p + k] = static_cast<float>(m[k]);
+    for (int k = 0; k < N; ++k) {
+      mean[p + k] = __fdiv_rn(round_f32(total[k]), tf);
+      mx[p + k] = static_cast<float>(m[k]);
+    }
   }
+};
+
+// The fold's epilogue: add into the running totals and, unless mx is null,
+// raise the running max.
+template <typename Total>
+struct Accumulate {
+  Total* acc;
+  float* mx;
+  template <typename T, int N>
+  __device__ __forceinline__ void operator()(long long p, const Total (&total)[N],
+                                             const T (&m)[N]) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      acc[p + k] += total[k];
+      if (mx != nullptr) mx[p + k] = fmaxf(mx[p + k], static_cast<float>(m[k]));
+    }
+  }
+};
+
+template <typename T, int N, typename Epilogue>
+__device__ __forceinline__ void reduce_and_store(const T* __restrict__ movie,
+                                                 long long t_len, long long hw,
+                                                 long long p,
+                                                 const Epilogue& out) {
+  typename Acc<T>::total total[N];
+  T m[N];
+  reduce_pixels<T, N>(movie, t_len, hw, p, total, m);
+  out(p, total, m);
 }
 
 // Threads [0, nvec) own one 16-byte vector each; the threads after them
 // own one pixel each of the remaining hw - nvec * N.
-template <typename T>
+template <typename T, typename Epilogue>
 __global__ void __launch_bounds__(kThreads)
 summary_kernel(const T* __restrict__ movie, long long t_len, long long hw,
-               long long nvec, float* __restrict__ mean,
-               float* __restrict__ mx) {
+               long long nvec, Epilogue out) {
   constexpr int N = 16 / sizeof(T);
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i < nvec) {
-    reduce_pixels<T, N>(movie, t_len, hw, i * N, mean, mx);
+    reduce_and_store<T, N>(movie, t_len, hw, i * N, out);
   } else {
     const long long p = nvec * N + (i - nvec);
-    if (p < hw) reduce_pixels<T, 1>(movie, t_len, hw, p, mean, mx);
+    if (p < hw) reduce_and_store<T, 1>(movie, t_len, hw, p, out);
   }
 }
 
-template <typename T>
+template <typename T, typename Epilogue>
 cudaError_t launch(const void* movie, long long t_len, long long hw,
-                   float* mean, float* mx, cudaStream_t stream) {
+                   const Epilogue& out, cudaStream_t stream) {
   constexpr int N = 16 / sizeof(T);
   const bool aligned = reinterpret_cast<uintptr_t>(movie) % 16 == 0 &&
                        (hw * static_cast<long long>(sizeof(T))) % 16 == 0;
@@ -162,9 +208,23 @@ cudaError_t launch(const void* movie, long long t_len, long long hw,
   const long long nthreads = nvec + (hw - nvec * N);
   const long long blocks = (nthreads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  summary_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(movie), t_len, hw, nvec, mean, mx);
+  summary_kernel<T, Epilogue><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(movie), t_len, hw, nvec, out);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_summary(const void* movie, long long t_len, long long hw,
+                           float* mean, float* mx, cudaStream_t stream) {
+  return launch<T>(movie, t_len, hw, Finalise{mean, mx, t_len}, stream);
+}
+
+template <typename T>
+cudaError_t launch_fold(const void* chunk, long long n_valid, long long hw,
+                        void* total, float* mx, cudaStream_t stream) {
+  using Total = typename Acc<T>::total;
+  return launch<T>(chunk, n_valid, hw,
+                   Accumulate<Total>{static_cast<Total*>(total), mx}, stream);
 }
 
 }  // namespace
@@ -179,9 +239,25 @@ int dc_movie_summary(const void* movie, int dtype, long long t_len,
   if (t_len <= 0 || hw <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<int16_t>(movie, t_len, hw, mean, mx, s));
-    case 1: return static_cast<int>(launch<uint16_t>(movie, t_len, hw, mean, mx, s));
-    case 2: return static_cast<int>(launch<float>(movie, t_len, hw, mean, mx, s));
+    case 0: return static_cast<int>(launch_summary<int16_t>(movie, t_len, hw, mean, mx, s));
+    case 1: return static_cast<int>(launch_summary<uint16_t>(movie, t_len, hw, mean, mx, s));
+    case 2: return static_cast<int>(launch_summary<float>(movie, t_len, hw, mean, mx, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Fold frames [0, n_valid) of a contiguous (>= n_valid, hw) device chunk
+// into total (hw int64 for dtypes 0 and 1, hw float64 for dtype 2) and, when
+// mx is not null, into the hw float32 running max. Frames from n_valid on
+// are not read. Launches on stream; returns the launch's cudaError_t.
+int dc_movie_fold(const void* chunk, int dtype, long long n_valid,
+                  long long hw, void* total, float* mx, void* stream) {
+  if (n_valid <= 0 || hw <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return static_cast<int>(launch_fold<int16_t>(chunk, n_valid, hw, total, mx, s));
+    case 1: return static_cast<int>(launch_fold<uint16_t>(chunk, n_valid, hw, total, mx, s));
+    case 2: return static_cast<int>(launch_fold<float>(chunk, n_valid, hw, total, mx, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,15 +16,22 @@ semantics:
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["mask_to_regions", "centers", "shapes", "nf_mask_metrics"]
+__all__ = ["label_mask", "mask_to_regions", "centers", "shapes",
+           "nf_mask_metrics"]
 
 _STRUCT8 = np.ones((3, 3), dtype=np.int32)
+
+
+def label_mask(m: np.ndarray) -> np.ndarray:
+    """8-connected component labeling of a binary 2-D mask."""
+    labeled, _ = ndimage.label(np.asarray(m) > 0, structure=_STRUCT8)
+    return labeled
 
 
 def mask_to_regions(m: np.ndarray) -> list:
     """Binary 2-D mask -> list of (N, 2) int64 coordinate arrays, one per
     8-connected component, in label order."""
-    labeled, n = ndimage.label(np.asarray(m) > 0, structure=_STRUCT8)
+    labeled = label_mask(m)
     regions = []
     for lbl, sl in enumerate(ndimage.find_objects(labeled), start=1):
         if sl is None:

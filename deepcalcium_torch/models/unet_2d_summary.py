@@ -1,15 +1,16 @@
-"""UNet2DSummary: the neuron-segmentation wrapper (fit, evaluate_movie).
+"""UNet2DSummary: the neuron-segmentation wrapper (fit, evaluate_movie,
+predict).
 
 Port of ``deepcalcium_tpu.models.unet_2d_summary.UNet2DSummary``: the
-constructor with its injection points, ``fit`` and ``evaluate_movie`` for a
-movie held as a tensor or a numpy array. ``predict`` over dataset files,
-Keras HDF5 weights, HDF5 movie paths and frames larger than the window are
-later parts of the port (ROADMAP, Queue 1 item 5), and so is multi-GPU
-training (item 11).
+constructor with its injection points, ``fit``, ``evaluate_movie`` (a
+tensor, an array or a contract-HDF5 path; frames larger than the window
+run tiled) and ``predict`` over datasets. Weights come from a ``.ckpt`` of
+either package or a Keras ``.hdf5``. Multi-GPU (``mesh``) is a later part
+of the port (ROADMAP, Queue 1 item 11).
 
 The default dataset accessors read the neurofinder HDF5 contract with
 ``h5py``, imported inside each function: a machine without ``h5py`` can
-still train from summaries passed through the injection points.
+still train and predict from summaries passed through the injection points.
 """
 
 import copy
@@ -31,13 +32,17 @@ from deepcalcium_torch.train.checkpoints import (latest_checkpoint,
                                                  load_checkpoint,
                                                  read_checkpoint,
                                                  save_checkpoint)
-from deepcalcium_torch.train.evaluate import (make_movie_evaluator,
-                                              predict_batched)
+from deepcalcium_torch.train.evaluate import (evaluate_movie_streaming,
+                                              evaluate_movie_tiled,
+                                              make_movie_evaluator,
+                                              predict_batched, predict_tiled,
+                                              predict_tta, tile_grid)
 from deepcalcium_torch.train.sampler import (Prefetcher, WindowSampler,
                                              make_put_fn)
 from deepcalcium_torch.utils.config import checkpoints_dir
 from deepcalcium_torch.utils.device import require_cuda
 from deepcalcium_torch.utils.profiling import trace
+from deepcalcium_torch.utils.runtime import funcname, phase_timer
 
 __all__ = ["UNet2DSummary", "summarize_series", "summarize_mask",
            "name_dataset"]
@@ -69,6 +74,10 @@ def summarize_mask(dspath: str) -> np.ndarray:
                 f"scoring/outlines against ground truth need masks/raw")
         msks = fp["masks/raw"][...]
     return mask_summary_exact(msks)
+
+
+def _is_keras(model_path) -> bool:
+    return str(model_path).endswith((".hdf5", ".h5"))
 
 
 def name_dataset(dspath: str) -> str:
@@ -123,7 +132,7 @@ class UNet2DSummary:
 
     def _resolve(self, model_path):
         """``model_path``, with "latest" resolved to the newest checkpoint
-        in ``cpdir``; Keras HDF5 weights are refused."""
+        in ``cpdir``."""
         if model_path == "latest":
             cpdir = self._cpdir()
             resolved = latest_checkpoint(cpdir)
@@ -131,20 +140,31 @@ class UNet2DSummary:
                 raise FileNotFoundError(
                     f"model_path='latest' but no checkpoint exists in {cpdir}")
             model_path = resolved
-        if str(model_path).endswith((".hdf5", ".h5")):
-            raise NotImplementedError(
-                "Keras HDF5 weights are not ported yet (ROADMAP Queue 1 "
-                "item 5: Keras import)")
         return model_path
 
     def _load_params(self, model_path):
         """(params, state) in the JAX package's layout, from a ``.ckpt``
-        written by either package, or the newest one in ``cpdir`` when
-        ``model_path == "latest"``."""
+        written by either package, a Keras ``.hdf5``/``.h5``, or the newest
+        checkpoint in ``cpdir`` when ``model_path == "latest"``."""
         model_path = self._resolve(model_path)
         logging.getLogger(__name__).info("loading params from %s", model_path)
+        if _is_keras(model_path):
+            from deepcalcium_torch.interop.keras_import import load_unet2ds_keras
+
+            return load_unet2ds_keras(model_path)
         params, state, _ = load_checkpoint(model_path)
         return params, state
+
+    def _inference_net(self, params, state, window_shape, fast):
+        """The eval-mode net on ``self.device``; BN folded into the convs
+        (with the sigmoid head) when ``fast`` is True, or "auto" for a
+        transpose-mode net and a window of multiples of 16."""
+        model = from_jax_params(params, state, self.compute_dtype,
+                                self.device).eval()
+        use_fold = fast is True or (
+            fast == "auto" and "up0_tconv" in params
+            and all(s % 16 == 0 for s in window_shape))
+        return model.fold() if use_fold else model
 
     # ------------------------------------------------------------------ fit
 
@@ -171,9 +191,10 @@ class UNet2DSummary:
         ``nb_epochs``) or a callable ``f(next_epoch) -> lr``.
         ``weight_decay`` > 0 trains with AdamW. ``profile_dir``: a
         ``torch.profiler`` trace of epoch 1 (epoch 0 if it is the only one).
-        ``model_path`` (a ``.ckpt`` of either package, or "latest") warm
-        starts; with ``proceed=True`` Adam's moments, step count and
-        learning rate resume too.
+        ``model_path`` (a ``.ckpt`` of either package, a Keras ``.hdf5``,
+        or "latest") warm starts; with ``proceed=True`` Adam's moments, step
+        count and learning rate resume too from a ``.ckpt`` (a Keras file
+        carries no optimizer state that is translated: Adam starts fresh).
 
         ``steps_per_dispatch``, ``prng_impl``, ``preset`` and ``fast_train``
         select TPU dispatch, PRNG and lane-packing levers of the JAX package;
@@ -224,6 +245,8 @@ class UNet2DSummary:
         loss_fn = L.LOSSES[loss] if isinstance(loss, str) else loss
         if model_path:
             model_path = self._resolve(model_path)
+            if not os.path.exists(model_path):
+                raise FileNotFoundError(f"model_path {model_path} does not exist")
             logger.info("starting from checkpoint %s", model_path)
         cpdir = self._cpdir()
 
@@ -246,14 +269,21 @@ class UNet2DSummary:
         net = self.net_func(compute_dtype=self.compute_dtype,
                             generator=torch.Generator().manual_seed(seed),
                             remat=self.remat)
-        if model_path:
+        opt_state = None
+        if model_path and _is_keras(model_path):
+            load_jax_params_(net, *self._load_params(model_path))
+            if proceed:
+                logger.info("proceed=True with a Keras checkpoint: weights "
+                            "resume, Adam starts fresh")
+        elif model_path:
             ckpt = read_checkpoint(model_path)
             load_jax_params_(net, ckpt["params"], ckpt["state"])
+            opt_state = ckpt["opt_state"]
         net.to(self.device)
         optimizer = T.make_optimizer(net, learning_rate,
                                      weight_decay=weight_decay)
-        if proceed and ckpt["opt_state"]:
-            T.load_optax_state_(net, optimizer, ckpt["opt_state"])
+        if proceed and opt_state:
+            T.load_optax_state_(net, optimizer, opt_state)
         step = T.make_train_step(net, loss_fn, optimizer)
 
         sampler = WindowSampler(S, M, names, yctrn, shape_trn,
@@ -405,10 +435,16 @@ class UNet2DSummary:
         z-norm -> reflect-pad -> (8x TTA) forward -> threshold.
 
         # Arguments
-            movie: (T, H, W) tensor or numpy array; it is copied to
-                ``self.device`` once if it is elsewhere.
-            model_path: a ``.ckpt`` (or "latest"); or pass ``params`` and
-                ``state`` in the JAX package's layout.
+            movie: (T, H, W) tensor or numpy array, or a contract-HDF5 path
+                (its ``series/raw`` is read 256 frames at a time and
+                folded by :func:`evaluate_movie_streaming`, K1's fold on
+                the card; the movie is never held whole). A tensor or array
+                whose frames fit the window is copied to ``self.device``
+                once and summarised by one K1 call; frames larger than the
+                window run :func:`evaluate_movie_tiled` (streaming fold,
+                overlapping window tiles, per-tile TTA).
+            model_path: a ``.ckpt``, a Keras ``.hdf5`` or "latest"; or pass
+                ``params`` and ``state`` in the JAX package's layout.
             window_shape: inference window; frames reflect-pad up to it.
             tta: run the 8 dihedral views as one batch.
             fast: fold BN into the convs and use the sigmoid head (exact up
@@ -425,23 +461,25 @@ class UNet2DSummary:
         elif state is None:
             raise ValueError("params given without state: pass both (state "
                              "carries the BN moving statistics)")
-        if isinstance(movie, (str, os.PathLike)):
-            raise NotImplementedError(
-                "HDF5 movie paths are not ported yet (ROADMAP Queue 1 item "
-                "5: streaming evaluate)")
-        if movie.shape[1] > window_shape[0] or movie.shape[2] > window_shape[1]:
-            raise NotImplementedError(
-                f"frames {tuple(movie.shape[1:])} exceed the window "
-                f"{tuple(window_shape)}; tiled evaluate is not ported yet "
-                f"(ROADMAP Queue 1 item 5)")
+        model = self._inference_net(params, state, window_shape, fast)
+        kw = dict(window=window_shape, tta=tta, threshold=threshold,
+                  device=self.device)
 
-        model = from_jax_params(params, state, self.compute_dtype,
-                                self.device).eval()
-        use_fold = fast is True or (
-            fast == "auto" and "up0_tconv" in params
-            and all(s % 16 == 0 for s in window_shape))
-        if use_fold:
-            model = model.fold()
+        def oversized(h, w):
+            return h > window_shape[0] or w > window_shape[1]
+
+        if isinstance(movie, (str, os.PathLike)):
+            import h5py
+
+            with h5py.File(movie, "r") as fp:
+                raw = fp["series/raw"]
+                ev = (evaluate_movie_tiled if oversized(*raw.shape[1:])
+                      else evaluate_movie_streaming)
+                mask, prob, _ = ev(model, raw, **kw)
+            return mask, prob
+        if oversized(*movie.shape[1:]):
+            mask, prob, _ = evaluate_movie_tiled(model, movie, **kw)
+            return mask, prob
 
         if isinstance(movie, np.ndarray):
             movie = torch.from_numpy(np.ascontiguousarray(movie))
@@ -451,3 +489,105 @@ class UNet2DSummary:
                                         threshold=threshold)
         mask, prob, _ = evaluate(movie)
         return mask.cpu().numpy(), prob.cpu().numpy()
+
+    # --------------------------------------------------------------- predict
+
+    def predict(self, dataset_paths, model_path, window_shape=(512, 512),
+                print_scores=False, save=False, augmentation=False,
+                threshold=0.5, mesh=None, max_batch=None, fast="auto"):
+        """Predict masks of datasets from their summary images; returns
+        (Mp, names) like the reference (``unet_2d_summary.py:532-625``).
+
+        Images that fit the window run as one batch (8x TTA views with
+        ``augmentation=True``), in slabs of ``max_batch``; larger ones run
+        tiled (:func:`predict_tiled`, per-tile TTA). The views/s of the
+        forward is logged through ``phase_timer``. ``print_scores`` logs
+        the Neurofinder scores against each dataset's mask summary;
+        ``save`` writes ``<cpdir>/<name>_mp.png`` with the predicted
+        outlines in red (and the true ones in blue when the file has
+        masks). Mask summaries are computed at most once a dataset.
+
+        ``model_path``: a ``.ckpt`` of either package, a Keras ``.hdf5``
+        (e.g. the reference's released ``unet2ds_model.hdf5``) or
+        "latest". ``fast``: as in :meth:`evaluate_movie`. ``mesh`` is not
+        ported yet.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device predict is not ported yet (ROADMAP Queue 1 "
+                "item 11: multi-GPU)")
+        logger = logging.getLogger(funcname())
+        params, state = self._load_params(model_path)
+        logger.info("Loaded model from %s.", model_path)
+        fwd = T.make_eval_forward(
+            self._inference_net(params, state, window_shape, fast))
+
+        names = [self.dataset_name_func(p) for p in dataset_paths]
+        S = [np.asarray(self.series_summary_func(p)) for p in dataset_paths]
+
+        hw, ww = window_shape
+        fits = [s.shape[0] <= hw and s.shape[1] <= ww for s in S]
+        predictor = predict_tta if augmentation else predict_batched
+
+        def ntiles(s, fit):
+            """Window-sized forwards an image costs, from the geometry
+            predict_tiled tiles with."""
+            if fit:
+                return 1
+            ys, xs = tile_grid(s.shape, window_shape)
+            return len(ys) * len(xs)
+
+        nviews = sum(ntiles(s, f) for s, f in zip(S, fits)) * (
+            8 if augmentation else 1)
+        with phase_timer("predict_forward", items=nviews, unit="views"):
+            small = [s for s, f in zip(S, fits) if f]
+            small_probs = iter(
+                predictor(fwd, small, self.device, window=window_shape,
+                          max_batch=max_batch) if small else [])
+            probs = [next(small_probs) if f else
+                     predict_tiled(fwd, s, self.device, window=window_shape,
+                                   max_batch=max_batch,
+                                   tta=augmentation)
+                     for s, f in zip(S, fits)]
+        Mp = [(p > threshold).astype(np.uint8) for p in probs]
+
+        mask_cache: dict = {}
+
+        def mask_for(dsp):
+            if dsp not in mask_cache:
+                mask_cache[dsp] = self.mask_summary_func(dsp)
+            return mask_cache[dsp]
+
+        if print_scores:
+            mean_p = mean_r = mean_c = 0.0
+            for dsp, name, mp in zip(dataset_paths, names, Mp):
+                p, r, i, e, c = nf_mask_metrics(mask_for(dsp), np.round(mp))
+                logger.info(
+                    "%s: prec=%.3f, reca=%.3f, incl=%.3f, excl=%.3f, comb=%.3f",
+                    name, p, r, i, e, c)
+                mean_p += p / len(dataset_paths)
+                mean_r += r / len(dataset_paths)
+                mean_c += c / len(dataset_paths)
+            logger.info("Mean prec=%.3f, reca=%.3f, comb=%.3f",
+                        mean_p, mean_r, mean_c)
+
+        if save:
+            import h5py
+
+            from deepcalcium_torch.utils.visualization import (mask_outlines,
+                                                               save_png)
+
+            cpdir = self._cpdir()
+            for dsp, name, s, mp in zip(dataset_paths, names, S, Mp):
+                with h5py.File(dsp, "r") as fp:
+                    has_masks = "masks" in fp
+                if has_masks:
+                    outlined = mask_outlines(s, [mask_for(dsp), np.round(mp)],
+                                             ["blue", "red"])
+                else:
+                    outlined = mask_outlines(s, [np.round(mp)], ["red"])
+                out = os.path.join(cpdir, f"{name}_mp.png")
+                save_png(out, outlined)
+                logger.info("Saved %s", out)
+
+        return Mp, names

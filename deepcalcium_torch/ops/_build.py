@@ -73,6 +73,8 @@ def load_library() -> ctypes.CDLL:
     p, ll = ctypes.c_void_p, ctypes.c_longlong
     lib.dc_movie_summary.argtypes = [p, ctypes.c_int, ll, ll, p, p, p]
     lib.dc_movie_summary.restype = ctypes.c_int
+    lib.dc_movie_fold.argtypes = [p, ctypes.c_int, ll, ll, p, p, p]
+    lib.dc_movie_fold.restype = ctypes.c_int
     lib.dc_error_string.argtypes = [ctypes.c_int]
     lib.dc_error_string.restype = ctypes.c_char_p
     return lib

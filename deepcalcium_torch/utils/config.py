@@ -1,6 +1,6 @@
-"""Where checkpoints live: the same JSON config file and directories as
-``deepcalcium_tpu.utils.config``, so that both packages share them, read
-without importing the JAX package.
+"""Where datasets and checkpoints live: the same JSON config file and
+directories as ``deepcalcium_tpu.utils.config``, so that both packages share
+them, read without importing the JAX package.
 
 The root is ``$DEEPCALCIUM_TPU_DIR``, or ``~/.deep-calcium-tpu``; the file
 ``deep-calcium-tpu.json`` there names ``datasets_dir`` and
@@ -10,7 +10,7 @@ The root is ``$DEEPCALCIUM_TPU_DIR``, or ``~/.deep-calcium-tpu``; the file
 import json
 import os
 
-__all__ = ["checkpoints_dir"]
+__all__ = ["datasets_dir", "checkpoints_dir"]
 
 
 def _base_dir() -> str:
@@ -39,6 +39,11 @@ def _config() -> dict:
     os.makedirs(config["datasets_dir"], exist_ok=True)
     os.makedirs(config["checkpoints_dir"], exist_ok=True)
     return config
+
+
+def datasets_dir() -> str:
+    """The shared dataset root directory (created if missing)."""
+    return _config()["datasets_dir"]
 
 
 def checkpoints_dir() -> str:

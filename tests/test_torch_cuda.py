@@ -63,6 +63,67 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
                                                dtype=torch.int16)[..., ::2])
 
 
+@pytest.mark.parametrize("dtype,shape,chunk,misaligned", [
+    (torch.int16, (3000, 512, 512), 256, False),    # ragged 184-frame tail
+    (torch.uint16, (3000, 512, 512), 256, False),
+    (torch.float32, (3000, 512, 512), 256, False),
+    (torch.int16, (301, 64, 72), 64, True),         # misaligned base
+    (torch.int16, (77, 19, 137), 16, False),        # H*W tail
+    (torch.uint16, (45, 9, 131), 8, True),
+    (torch.float32, (33, 13, 29), 7, False),
+])
+def test_k1_fold_matches_plain_fold_on_card(cuda_device, dtype, shape, chunk,
+                                            misaligned):
+    """K1's fold through a staging buffer poisoned past n_valid, against the
+    plain fold and one K1 call (``chip_smoke.check_fold``): integer totals
+    equal and means bitwise K1's; float32 means within 1 ulp; maxima
+    equal."""
+    from chip_smoke import check_fold
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    if dtype == torch.float32:
+        movie = torch.rand(shape, generator=g, device=cuda_device) * 4000 - 2000
+    else:
+        lo, hi = (-2000, 30000) if dtype == torch.int16 else (0, 65536)
+        movie = torch.randint(lo, hi, shape, generator=g, device=cuda_device,
+                              dtype=torch.int32).to(dtype)
+    launches = summary.movie_fold_cuda.launches
+    check_fold(cuda_device, movie, chunk, misaligned)
+    assert summary.movie_fold_cuda.launches == launches + -(-shape[0] // chunk)
+
+
+def test_k1_fold_rejects_what_it_does_not_take(cuda_device):
+    chunk = torch.zeros((4, 8, 8), dtype=torch.int16, device=cuda_device)
+    total, mx = summary.fold_accumulators((8, 8), torch.int16, cuda_device)
+    for n in (0, -1, 5):
+        with pytest.raises(ValueError, match="n_valid"):
+            summary.movie_fold_cuda(chunk, n, total, mx)
+    with pytest.raises(TypeError, match="totals"):
+        summary.movie_fold_cuda(chunk, 2, total.double(), mx)
+    with pytest.raises(ValueError, match="contiguous"):
+        summary.movie_fold_cuda(torch.zeros((4, 8, 16), dtype=torch.int16,
+                                            device=cuda_device)[..., ::2], 2,
+                                total, mx)
+    with pytest.raises(ValueError, match="CUDA"):
+        summary.movie_fold_cuda(chunk.cpu(), 2, total, mx)
+
+
+def test_streaming_summary_on_card_matches_k1(cuda_device):
+    """Host chunks staged through the pinned buffer, with a ragged tail and
+    a chunk split in two: mean and max bitwise K1's."""
+    rng = np.random.default_rng(3)
+    movie = rng.integers(-500, 4000, (103, 96, 80)).astype(np.int16)
+    ss = summary.StreamingSummary((96, 80), dtype=np.int16, device="cuda")
+    ss.update(movie[:10])
+    ss.update(movie[10:35])   # split into slabs of 10
+    ss.update(movie[35:])
+    mean, mx = ss.result()
+    k1_mean, k1_max = summary.movie_summary_cuda(
+        torch.from_numpy(movie).to(cuda_device))
+    np.testing.assert_array_equal(mean, k1_mean.cpu().numpy())
+    np.testing.assert_array_equal(mx, k1_max.cpu().numpy().astype(np.int16))
+
+
 def test_movie_evaluator_on_card_matches_cpu(cuda_device):
     """The whole slice at a small size: the card (K1, float32 convs with
     TF32 off) against the CPU (plain summary), rtol=1e-4, atol=1e-5 on prob

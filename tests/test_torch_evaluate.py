@@ -180,14 +180,18 @@ def test_unet2dsummary_refuses_what_is_not_ported(tmp_path, tiny_net, movie):
 
     params, state = tiny_net
     model = UNet2DSummary(cpdir=str(tmp_path / "cp"), device="cpu")
-    with pytest.raises(NotImplementedError, match="HDF5"):
+    # HDF5 paths, Keras weights and frames larger than the window are
+    # ported; only multi-device predict is not.
+    with pytest.raises(FileNotFoundError):
         model.evaluate_movie(str(tmp_path / "m.hdf5"), params=params,
                              state=state)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        model.evaluate_movie(movie, params=params, state=state,
-                             window_shape=(32, 32))
-    with pytest.raises(NotImplementedError, match="Keras"):
-        model.evaluate_movie(movie, model_path="w.hdf5")
+    mask, prob = model.evaluate_movie(movie, params=params, state=state,
+                                      window_shape=(32, 32))
+    assert mask.shape == prob.shape == movie.shape[1:]
+    with pytest.raises(FileNotFoundError):
+        model.evaluate_movie(movie, model_path=str(tmp_path / "w.hdf5"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model.predict([], str(tmp_path / "w.hdf5"), mesh=object())
     with pytest.raises(ValueError, match="without state"):
         model.evaluate_movie(movie, params=params)
     with pytest.raises(FileNotFoundError):

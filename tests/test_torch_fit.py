@@ -141,7 +141,8 @@ def test_default_accessors_match_jax(datasets):
     (dict(fast_train="yes"), ValueError),
     (dict(lr_schedule="step"), ValueError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(model_path="weights.hdf5"), NotImplementedError),
+    (dict(model_path="weights.hdf5"), FileNotFoundError),
+    (dict(model_path="weights.ckpt"), FileNotFoundError),
     (dict(model_path="latest"), FileNotFoundError),
 ])
 def test_fit_checks_knobs_before_any_dataset_io(tmp_path, kw, err):

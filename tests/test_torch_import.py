@@ -21,7 +21,8 @@ def _python(*args, timeout=180):
 
 
 def test_port_and_chip_smoke_never_import_jax():
-    """Nor the JAX package: the port stands on its own."""
+    """Nor the JAX package: the port stands on its own. Nor h5py, PIL or
+    requests at import: the card machine has none of them."""
     code = (
         "import sys\n"
         "import deepcalcium_torch.models.unet_2d_summary\n"
@@ -33,10 +34,23 @@ def test_port_and_chip_smoke_never_import_jax():
         "import deepcalcium_torch.train.sampler\n"
         "import deepcalcium_torch.train.trainer\n"
         "import deepcalcium_torch.utils.profiling\n"
+        "import deepcalcium_torch.utils.runtime\n"
+        "import deepcalcium_torch.utils.visualization\n"
+        "import deepcalcium_torch.utils.config\n"
+        "import deepcalcium_torch.interop.keras_import\n"
+        "import deepcalcium_torch.data.nf\n"
+        "import deepcalcium_torch.data.custom\n"
+        "import deepcalcium_torch.data._ingest\n"
+        "import deepcalcium_torch.data.tiff_native\n"
+        "import deepcalcium_torch.train.evaluate\n"
+        "import deepcalcium_torch.ops.summary\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu'))\n"
         "assert not bad, bad\n"
+        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('h5py', 'PIL', 'requests'))\n"
+        "assert not lazy, lazy\n"
         "print('clean')\n")
     proc = _python("-c", code)
     assert proc.returncode == 0, proc.stderr
