@@ -20,7 +20,29 @@ Phases, one line each, in order:
 7. the training path at full width: ``UNet2DSummary.fit`` at nfb=32,
    bfloat16, batch 20 of 128x128 windows, 2 epochs of 10 steps with 512x512
    validation, on two synthetic movies whose summaries K1 makes; then the
-   best checkpoint is read back and evaluated, and the train step is timed.
+   best checkpoint is read back and evaluated, and the train step is timed;
+8. K1's fold (``movie_fold_cuda``) against the plain fold and one K1 call,
+   through staging buffers poisoned past ``n_valid``, and its time;
+9. the streaming evaluate of the phase-5 movie held as a host array;
+10. the tiled evaluate of a host 1000x1024x1024 movie, checked at float32
+    against the fused path and a straightforward composition;
+11. ``UNet2DSummary.predict`` through the injection points, and
+    ``nf_submit`` read back;
+12. the golden tiny UNet1D at float32 (TF32 off) against ``golden_io.npz``
+    ``y1``;
+13. 1-D train step vs JAX: the tiny UNet1D takes 3 Adam steps at float32
+    (TF32 off) and is held against ``unet1d_tiny_train_step.npz``; and the
+    window-2 pool and the margin head route tied gradients as the JAX
+    package does, float32 and bfloat16;
+14. the spike path at full width: ``UNet1DSegmentation.fit`` at nfb=32,
+    bfloat16, batch 20 of 4096-sample windows, margin 4, 2 epochs on 200
+    synthetic calcium traces of 30,011 samples; then the train step is
+    timed and profiled;
+15. ``UNet1DSegmentation.predict`` of the 200 full-length traces from the
+    best checkpoint at batch 32, timed; at float32 (TF32 off) batch 8 and
+    batch 32 give the same masks away from the threshold;
+16. ``GLMSegmentation`` fit, predict and ``predict_rates`` for the GLM and
+    the STM on the same traces, with the ms of a full-batch epoch.
 Then one JSON line with each kernel's record and the paths' numbers, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises, so the exit code is non-zero and no
@@ -44,6 +66,12 @@ NFB = 32
 TRAIN_BATCH, TRAIN_WINDOW = 20, 128
 FIT_FRAMES, FIT_EPOCHS, FIT_STEPS = 1000, 2, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense
+# The 1-D training recipe of bench.py: batch 20 of 4096-sample windows,
+# margin 4; the traces of the spike phases.
+SPIKE_BATCH, SPIKE_WINDOW, SPIKE_MARGIN = 20, 4096, 4
+SPIKE_TRACES, SPIKE_LEN, SPIKE_EPOCHS = 200, 30011, 2
+GLM_EPOCHS = 300
 
 
 def _timed_ms(fn, iters):
@@ -83,6 +111,30 @@ def _device_time_per_call(fn, calls):
     top = [(e.key[:60], e.self_device_time_total / calls / 1e3)
            for e in kernels[:5]]
     return total_ms, launches, top
+
+
+class _LogArgs:
+    """Collect the arguments of a logger's records inside a ``with``."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger = logging.getLogger(name)
+        self.records = []
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
 
 
 def phase_device():
@@ -337,11 +389,18 @@ def phase_main(dev, seed, t):
                           "mask": mask, "prob": prob}
 
 
-def assert_matches_golden(gold, metrics, grads, params, state):
-    """The train-step golden's tolerances (``tests/test_torch_train.py``
-    holds the CPU to them too):
-    - loss and dicesq (unrounded): rtol 1e-4;
-    - the rounded metrics: atol 2e-3, one pixel of the 2048 crossing 0.5;
+# Metrics of the train-step goldens that round no prediction.
+UNROUNDED_METRICS = ("loss", "dicesq", "ytspks")
+
+
+def assert_matches_golden(gold, metrics, grads, params, state,
+                          rounded_atol=2e-3):
+    """The train-step goldens' tolerances (``tests/test_torch_train.py`` and
+    ``tests/test_torch_unet1d.py`` hold the CPU to them too):
+    - the unrounded metrics (loss, dicesq, ytspks): rtol 1e-4;
+    - the rounded metrics: atol ``rounded_atol``; 2e-3 for the 2-D golden,
+      one pixel of the 2048 crossing 0.5; 0 for the 1-D golden, whose
+      probabilities stay off 0.5 (its writer checks);
     - step-1 gradients: rtol 1e-4 plus 1e-5 of the largest gradient (sums
       in another order; the BN-fed biases are zero up to rounding);
     - params after 3 steps: atol 6e-5 = 3 steps * lr * 1e-6 / eps, the most
@@ -357,12 +416,15 @@ def assert_matches_golden(gold, metrics, grads, params, state):
                 for k in sorted(tree) for leaf, v in sorted(tree[k].items())}
 
     errs = {}
-    for k in ("loss", "dicesq", "F1", "prec", "reca", "dice", "posyt", "posyp"):
+    names = sorted(k.split("/", 1)[1] for k in gold if k.startswith("metrics/"))
+    if names != sorted(metrics[0]):
+        raise AssertionError(f"metrics {sorted(metrics[0])} != golden {names}")
+    for k in names:
         got = np.array([m[k] for m in metrics], np.float32)
-        exact = k in ("loss", "dicesq")
+        exact = k in UNROUNDED_METRICS
         np.testing.assert_allclose(got, gold[f"metrics/{k}"],
                                    rtol=1e-4 if exact else 0,
-                                   atol=0 if exact else 2e-3, err_msg=k)
+                                   atol=0 if exact else rounded_atol, err_msg=k)
         errs[k] = float(np.abs(got - gold[f"metrics/{k}"]).max())
     flat_g = flat("grads", grads)
     gmax = max(np.abs(gold[k]).max() for k in flat_g)
@@ -900,7 +962,6 @@ def phase_predict(dev, main, tiled_movie):
     pixel above 0.5, so predict thresholds at the 98th percentile of phase
     5's prob: the masks then hold many regions, and the submission stays
     small."""
-    import logging
     import re
 
     import numpy as np
@@ -929,13 +990,7 @@ def phase_predict(dev, main, tiled_movie):
     ckpt = str(out / "unet2ds_random.ckpt")
     save_checkpoint(ckpt, main["params"], main["state"])
     threshold = float(np.quantile(main["prob"], 0.98))
-    records = []
-    handler = logging.Handler()
-    handler.emit = records.append
-    timer_log = logging.getLogger("predict_forward")
-    timer_log.addHandler(handler)
-    timer_log.setLevel(logging.INFO)
-    try:
+    with _LogArgs("predict_forward") as records:
         wrapper = UNet2DSummary(cpdir=str(out), compute_dtype=torch.bfloat16,
                                 dataset_name_func=lambda n: n,
                                 series_summary_func=lambda n: S[n])
@@ -944,8 +999,6 @@ def phase_predict(dev, main, tiled_movie):
         Mp, names = wrapper.predict(list(S), ckpt, window_shape=(WINDOW, WINDOW),
                                     augmentation=True, threshold=threshold)
         predict_s = time.perf_counter() - t0
-    finally:
-        timer_log.removeHandler(handler)
     views_per_s = float(re.search(r"\(([\d.]+) views/s\)",
                                   records[-1].getMessage()).group(1))
     if names != list(S) or [m.shape for m in Mp] != [s.shape for s in S.values()]:
@@ -988,6 +1041,460 @@ def phase_predict(dev, main, tiled_movie):
             "mask_differs_from_evaluate": float(differ.mean())}
 
 
+# --- The spike path: UNet1D, its wrapper, the GLM/STM baselines ------------
+
+def phase_golden1d(dev):
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.unet1d import from_jax_params
+    from deepcalcium_torch.train.checkpoints import read_checkpoint
+
+    gold = REPO / "tests" / "golden"
+    data = np.load(gold / "golden_io.npz")
+    raw = read_checkpoint(str(gold / "unet1d_tiny.ckpt"))
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = from_jax_params(raw["params"], raw["state"], device=dev,
+                                margin=4).eval()
+        with torch.inference_mode():
+            y = model(torch.from_numpy(data["x1"]).to(dev)).cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    np.testing.assert_allclose(y, data["y1"], rtol=1e-4, atol=1e-6,
+                               err_msg="golden y1")
+    err = float(np.abs(y - data["y1"]).max())
+    print(f"golden tiny UNet1D, f32 with TF32 off: max_abs_err {err:.3g}, "
+          f"rtol=1e-4 atol=1e-6", flush=True)
+    return err
+
+
+def first_max_grad_1d(z, ct, window, stride, pad_lo=0, pad_hi=0):
+    """Numpy oracle of a 1-D max-pool's gradient on (B, C, T) ``z``: each
+    output's cotangent goes to the first maximum of its window (the
+    padding holds -inf), and overlapping windows add up in float32 in
+    output order, as PyTorch's max-pool backward sums them."""
+    import numpy as np
+
+    zp = np.pad(z, ((0, 0), (0, 0), (pad_lo, pad_hi)),
+                constant_values=-np.inf)
+    win = np.lib.stride_tricks.sliding_window_view(zp, window, axis=-1)
+    win = win[..., ::stride, :]
+    first = np.argmax(win == win.max(axis=-1, keepdims=True), axis=-1)
+    g = np.zeros(zp.shape, np.float32)
+    b, c, n = first.shape
+    for j in range(n):
+        bi, ci = np.meshgrid(np.arange(b), np.arange(c), indexing="ij")
+        np.add.at(g, (bi, ci, j * stride + first[:, :, j]), ct[:, :, j])
+    return g[:, :, pad_lo:zp.shape[-1] - pad_hi]
+
+
+def tied_1d_input(rng, shape):
+    """ReLU'd (B, C, T) activations with forced equal pairs, a constant
+    stretch and a zero-filled tail (as the batch generator writes for a
+    trace shorter than the window)."""
+    import numpy as np
+
+    z = np.maximum(rng.standard_normal(shape), 0).astype(np.float32)
+    z[..., 0::4] = z[..., 1::4]
+    z[0, :, 5:20] = 1.5
+    z[-1, :, -12:] = 0.0
+    return z
+
+
+def check_1d_tie_routing(dev, dtype):
+    """pool2 and the margin head (windows 1..8) route tied gradients to
+    each window's first maximum, as the JAX package does (held there on
+    the CPU by ``tests/test_torch_unet1d.py``)."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models import blocks
+
+    rng = np.random.default_rng(7)
+    z = tied_1d_input(rng, (3, 4, 64))
+    cases = [("pool2", blocks.pool2, 2, 2, 0, 0)]
+    for w in (1, 2, 3, 4, 5, 8):
+        lo = (w - 1) // 2
+        cases.append((f"head w={w}", lambda t, w=w: blocks.maxpool1d_same(t, w),
+                      w, 1, lo, w - 1 - lo))
+    for label, fn, window, stride, lo, hi in cases:
+        zt = torch.from_numpy(z).to(dev, dtype).requires_grad_()
+        out = fn(zt)
+        # Nonzero small integers: every sum of them is exact in any order
+        # and precision, so only the routing is compared.
+        ct = torch.from_numpy((rng.integers(1, 4, tuple(out.shape)) * rng.choice(
+            [-1, 1], tuple(out.shape))).astype(np.float32)).to(dtype)
+        out.backward(ct.to(dev))
+        zr = zt.detach().float().cpu().numpy()
+        want = torch.from_numpy(first_max_grad_1d(
+            zr, ct.float().numpy(), window, stride, lo, hi)).to(dtype)
+        if not np.array_equal(zt.grad.float().cpu().numpy(),
+                              want.float().numpy()):
+            raise AssertionError(f"1-D max-pool gradient routing differs from "
+                                 f"the first maximum: {label}, {dtype}")
+
+
+def phase_train_golden1d(dev):
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.unet1d import (from_jax_params, jax_tree,
+                                                 to_jax_params)
+    from deepcalcium_torch.ops import losses
+    from deepcalcium_torch.train import trainer
+    from deepcalcium_torch.train.checkpoints import read_checkpoint
+
+    gold_dir = REPO / "tests" / "golden"
+    with np.load(gold_dir / "unet1d_tiny_train_step.npz") as f:
+        gold = dict(f)
+    raw = read_checkpoint(str(gold_dir / "unet1d_tiny.ckpt"))
+    params = dict(raw["params"], head_conv={
+        "kernel": raw["params"]["head_conv"]["kernel"], "bias": gold["head_bias"]})
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = from_jax_params(params, raw["state"], device=dev, drp=0.0,
+                                margin=int(gold["margin"]))
+        opt = trainer.make_optimizer(model, float(gold["lr"]))
+        for group in opt.param_groups:
+            group["eps"] = float(gold["adam_eps"])
+        loss = lambda yt, yp: losses.weighted_binary_crossentropy(yt, yp, 2.0)
+        step = trainer.make_train_step(model, loss, opt,
+                                       dict(losses.SPIKE_METRICS))
+        x = torch.from_numpy(gold["x"]).to(dev)
+        y = torch.from_numpy(gold["y"]).to(dev)
+        metrics, grads = [], None
+        for _ in range(3):
+            met = step(x, y)
+            metrics.append({k: v.item() for k, v in met.items()})
+            if grads is None:
+                grads = jax_tree(model, {n: p.grad for n, p in
+                                         model.named_parameters()})
+        params3, state3 = to_jax_params(model)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    errs = assert_matches_golden(gold, metrics, grads, params3, state3,
+                                 rounded_atol=0)
+    print("1-D train step vs JAX golden (tiny UNet1D, f32, TF32 off, 3 Adam "
+          "steps): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()),
+          flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_1d_tie_routing(dev, dtype)
+    print("1-D tie routing on the card (f32, bf16): pool2 and the margin "
+          "head (windows 1-8) send each gradient to its window's first "
+          "maximum, as the JAX package", flush=True)
+    return errs
+
+
+def synthetic_spike_traces(seed, rate=0.02):
+    """Calcium-like traces, the recipe of ``data/fixtures.make_spikes_hdf5``
+    (that module needs h5py): spikes at ``rate`` through an exponential
+    decay (tau 8 samples), times 3, plus noise of std 0.15; z-normalised
+    per trace as ``get_dataset_traces`` does. Returns (traces float64,
+    spikes uint8), both (SPIKE_TRACES, SPIKE_LEN)."""
+    import numpy as np
+
+    n, t = SPIKE_TRACES, SPIKE_LEN
+    rng = np.random.default_rng(seed)
+    spikes = (rng.random((n, t)) < rate).astype(np.uint8)
+    kernel = np.exp(-np.arange(40) / 8.0)
+    traces = np.stack([np.convolve(s, kernel)[:t] for s in spikes]) * 3.0
+    traces += rng.standard_normal((n, t)) * 0.15
+    traces = (traces - traces.mean(axis=1, keepdims=True)) / traces.std(
+        axis=1, keepdims=True)
+    return traces, spikes
+
+
+def phase_fit1d(dev, seed, card):
+    """``UNet1DSegmentation.fit`` at the published width through the
+    injection points; then the train step alone, timed and profiled."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.unet1d import (UNet1D, forward_flops,
+                                                 from_jax_params,
+                                                 param_count, to_jax_params)
+    from deepcalcium_torch.models import unet_1d_segmentation as seg
+    from deepcalcium_torch.ops import losses
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+    from deepcalcium_torch.train import trainer
+    from deepcalcium_torch.train.checkpoints import read_checkpoint
+
+    traces, spikes = synthetic_spike_traces(seed + 20)
+    name = "synthetic.spikes"
+    nets = []
+
+    def net_func(**kw):
+        nets.append(UNet1D(nfb=NFB, **kw))
+        return nets[-1]
+
+    cpdir = REPO / "build" / "chip_smoke_fit1d"
+    shutil.rmtree(cpdir, ignore_errors=True)
+    wrapper = seg.UNet1DSegmentation(
+        cpdir=str(cpdir), dataset_attrs_func=lambda n: {"name": n},
+        dataset_traces_func=lambda n: traces,
+        dataset_spikes_func=lambda n: spikes, net_func=net_func,
+        compute_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+    t0 = time.perf_counter()
+    with _LogArgs(seg.__name__) as records:
+        mt, mv, best = wrapper.fit(
+            [name], shape=(SPIKE_WINDOW,), error_margin=SPIKE_MARGIN,
+            batch=SPIKE_BATCH, nb_epochs=SPIKE_EPOCHS, learning_rate=2e-3,
+            seed=seed)
+    fit_s = time.perf_counter() - t0
+    k1_launches = movie_summary_cuda.launches + movie_fold_cuda.launches
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    epochs = [r for r in records if r.getMessage().startswith("epoch ")]
+    epoch_s = [float(r.args[-1]) for r in epochs]
+    losses_per_epoch = [float(r.args[1]) for r in epochs]
+    n_trn = int(SPIKE_TRACES * 0.8)
+    steps = -(-n_trn // SPIKE_BATCH)
+    if len(epochs) != SPIKE_EPOCHS or not np.isfinite(losses_per_epoch).all():
+        raise AssertionError(f"fit logged {len(epochs)} epochs, losses "
+                             f"{losses_per_epoch}")
+    if sorted(mt) != sorted(losses.SPIKE_METRICS) or not all(
+            np.isfinite(v) for v in list(mt.values()) + list(mv.values())):
+        raise AssertionError(f"bad fit metrics {mt} {mv}")
+    ckpt = read_checkpoint(best)
+    if int(ckpt["opt_state"]["count"]) != steps * (int(ckpt["meta"]["epoch"]) + 1):
+        raise AssertionError("best checkpoint has the wrong Adam count")
+    init, _ = to_jax_params(UNet1D(nfb=NFB, generator=torch.Generator().manual_seed(seed)))
+    if any(np.array_equal(ckpt["params"][k]["kernel"], init[k]["kernel"])
+           for k in init if "kernel" in init[k]):
+        raise AssertionError("fit left a kernel at its initial value")
+    if abs(ckpt["meta"]["val_F2"] - mv["F2"]) > 1e-6:
+        raise AssertionError("the reloaded best net does not score its "
+                             "checkpoint's val_F2")
+
+    # The train step alone, on one batch of the generator, from the best
+    # weights (dropout on, bf16).
+    net = from_jax_params(ckpt["params"], ckpt["state"], torch.bfloat16, dev,
+                          margin=SPIKE_MARGIN)
+    gen = wrapper._batch_gen(list(traces[:n_trn]), list(spikes[:n_trn]),
+                             (SPIKE_WINDOW,), SPIKE_BATCH, SPIKE_MARGIN, seed)
+    xb, yb = (torch.from_numpy(a).to(dev) for a in next(gen))
+    loss = lambda yt, yp: losses.weighted_binary_crossentropy(yt, yp, 2.0)
+    step = trainer.make_train_step(net, loss, trainer.make_optimizer(net, 1e-4),
+                                   dict(losses.SPIKE_METRICS))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(3):
+        step(xb, yb, g)
+    step_ms = _timed_ms(lambda: step(xb, yb, g), 20)
+    device_ms, step_kernels, top = _device_time_per_call(
+        lambda: step(xb, yb, g), 5)
+    flops = 3 * SPIKE_BATCH * forward_flops(SPIKE_WINDOW, NFB)
+    numbers = {
+        "params": param_count(net), "val_F2": mv["F2"], "trn_F2": mt["F2"],
+        "loss_per_epoch": losses_per_epoch, "epoch_seconds": epoch_s,
+        "fit_seconds": fit_s, "train1d_step_ms": step_ms,
+        "train1d_step_device_ms": device_ms,
+        "train1d_step_kernels": step_kernels,
+        "train1d_device_idle": 1.0 - device_ms / step_ms,
+        "train1d_tflops": flops / step_ms / 1e9,
+        "train1d_mfu": flops / step_ms * 1e3 / BF16_FLOPS_PER_S,
+        "windows_per_sec": SPIKE_BATCH / step_ms * 1e3, "peak_gib": peak_gib,
+        "k1_launches": k1_launches, "best": Path(best).name}
+    print(f"spike fit nfb={NFB} ({numbers['params']} weights) bf16, batch "
+          f"{SPIKE_BATCH} x {SPIKE_WINDOW}, margin {SPIKE_MARGIN}, "
+          f"{SPIKE_EPOCHS} epochs of {steps} steps on {SPIKE_TRACES} traces "
+          f"of {SPIKE_LEN}: loss per epoch "
+          f"{[round(v, 4) for v in losses_per_epoch]}; val F2 {mv['F2']:.4f}; "
+          f"epoch wall {[round(v, 3) for v in epoch_s]} s; fit "
+          f"{fit_s:.2f} s; peak memory {peak_gib:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB earlier phases hold; K1 launches "
+          f"{k1_launches}; {card}", flush=True)
+    print(f"train1d_step_ms {step_ms:.3f} ({numbers['windows_per_sec']:.1f} "
+          f"windows/s, {numbers['train1d_tflops']:.1f} TFLOP/s bf16 at 3x "
+          f"forward FLOPs = {numbers['train1d_mfu']:.2%} of 989 TFLOP/s); "
+          f"on the device: {step_kernels:.0f} kernels, {device_ms:.3f} ms a "
+          f"step, so the card idles {numbers['train1d_device_idle']:.1%}; "
+          f"most device time: " + "; ".join(f"{n} {ms:.3f} ms" for n, ms in top)
+          + f"; {card}", flush=True)
+    shutil.rmtree(cpdir, ignore_errors=True)
+    return numbers, {"traces": traces, "spikes": spikes, "ckpt": ckpt,
+                     "name": name}
+
+
+def phase_predict1d(dev, fit_ctx, card, band=1e-4):
+    """``UNet1DSegmentation.predict`` of the full-length traces from the
+    best checkpoint, bf16 at batch 32, timed; then float32 (TF32 off) at
+    batch 8 and 32: masks equal except within ``band`` of the threshold."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models import unet_1d_segmentation as seg
+    from deepcalcium_torch.models.unet1d import forward_flops, from_jax_params
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+    from deepcalcium_torch.train.checkpoints import save_checkpoint
+
+    traces, name = fit_ctx["traces"], fit_ctx["name"]
+    out = REPO / "build" / "chip_smoke_predict1d"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ckpt = str(out / "unet1d_best.ckpt")
+    save_checkpoint(ckpt, fit_ctx["ckpt"]["params"], fit_ctx["ckpt"]["state"])
+    padded, t = seg._pad_to_multiple(traces.astype(np.float32), 16)
+    if padded.shape != (SPIKE_TRACES, -(-SPIKE_LEN // 16) * 16) or t != SPIKE_LEN:
+        raise AssertionError(f"reflect pad gave {padded.shape}")
+
+    def wrapper(dtype):
+        return seg.UNet1DSegmentation(
+            cpdir=str(out), dataset_attrs_func=lambda n: {"name": n},
+            dataset_traces_func=lambda n: traces,
+            dataset_spikes_func=lambda n: fit_ctx["spikes"],
+            compute_dtype=dtype, device=dev)
+
+    bf16 = wrapper(torch.bfloat16)
+    movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks, names = bf16.predict([name], ckpt, batch=32)
+        runs.append(time.perf_counter() - t0)
+    k1_launches = movie_summary_cuda.launches + movie_fold_cuda.launches
+    device_ms, kernels, top = _device_time_per_call(
+        lambda: bf16.predict([name], ckpt, batch=32), 1)
+    m = masks[0]
+    if names != [name] or m.shape != traces.shape or m.dtype != np.uint8 \
+            or not set(np.unique(m)) <= {0, 1}:
+        raise AssertionError(f"predict returned {names}, {m.shape} {m.dtype}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32 = wrapper(None)
+        m8 = f32.predict([name], ckpt, batch=8)[0][0]
+        m32 = f32.predict([name], ckpt, batch=32)[0][0]
+        net = from_jax_params(fit_ctx["ckpt"]["params"], fit_ctx["ckpt"]["state"],
+                              device=dev, margin=SPIKE_MARGIN).eval()
+        with torch.inference_mode():
+            probs = torch.cat([net(torch.from_numpy(padded[i:i + 32]).to(dev))
+                               for i in range(0, len(padded), 32)])
+        probs = probs[:, :t].cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    near = np.abs(probs - 0.5) < band
+    differ = m8 != m32
+    if (differ & ~near).any() or not np.array_equal(m32[~near], (probs > 0.5)[~near]):
+        raise AssertionError("f32 predict masks differ between batch 8 and 32 "
+                             "away from the threshold")
+    samples = traces.size
+    numbers = {"seconds": runs, "samples_per_sec": [samples / r for r in runs],
+               "traces": list(traces.shape), "padded_to": padded.shape[1],
+               "f32_batch8_vs_32_differ": int(differ.sum()),
+               "f32_within_band": int(near.sum()), "band": band,
+               "bf16_vs_f32_differ_fraction": float((m != m32).mean()),
+               "spike_fraction": float(m.mean()), "k1_launches": k1_launches,
+               "device_ms": device_ms, "kernels": kernels,
+               "tflops": SPIKE_TRACES * forward_flops(
+                   padded.shape[1], NFB) / min(runs) / 1e12,
+               "device_idle": 1.0 - device_ms / (min(runs) * 1e3)}
+    print(f"spike predict bf16 batch 32, {traces.shape[0]} traces of "
+          f"{traces.shape[1]} (reflect-padded to {padded.shape[1]}): "
+          f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms, "
+          f"{max(numbers['samples_per_sec']):.4g} trace-samples/s; f32 TF32 "
+          f"off, batch 8 vs 32: {int(differ.sum())} samples differ, all "
+          f"within {band} of 0.5 ({int(near.sum())} samples there); bf16 "
+          f"masks differ from f32 on {numbers['bf16_vs_f32_differ_fraction']:.4%}; "
+          f"K1 launches {k1_launches}; {card}", flush=True)
+    print(f"spike predict on the device: {numbers['tflops']:.1f} TFLOP/s "
+          f"bf16 over the fastest call; {kernels:.0f} kernels, "
+          f"{device_ms:.1f} ms of them a call, so the card idles "
+          f"{numbers['device_idle']:.1%}; most device time: "
+          + "; ".join(f"{n} {ms:.2f} ms" for n, ms in top) + f"; {card}",
+          flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return numbers
+
+
+def phase_glm(dev, fit_ctx, card):
+    """``GLMSegmentation`` fit, predict and ``predict_rates`` for both
+    archs on the spike phase's traces; the card's outputs held against the
+    same params on the CPU over 4 traces."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models import glm_spikes as glm
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+    from deepcalcium_torch.train.checkpoints import read_checkpoint
+
+    traces, spikes, name = fit_ctx["traces"], fit_ctx["spikes"], fit_ctx["name"]
+    out = REPO / "build" / "chip_smoke_glm"
+    shutil.rmtree(out, ignore_errors=True)
+    numbers = {}
+    movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+    for arch in ("glm", "stm"):
+        model = glm.GLMSegmentation(
+            cpdir=str(out / arch), arch=arch, dataset_attrs_func=lambda n: {"name": n},
+            dataset_traces_func=lambda n: traces,
+            dataset_spikes_func=lambda n: spikes, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _LogArgs(glm.__name__) as records:
+            mt, mv, path = model.fit([name], nb_epochs=GLM_EPOCHS,
+                                     error_margin=SPIKE_MARGIN)
+        fit_s = time.perf_counter() - t0
+        epoch_ms = [float(r.args[-1]) for r in records
+                    if "full-batch epoch" in r.getMessage()]
+        if len(epoch_ms) != 1 or not all(np.isfinite(v) for v in mv.values()):
+            raise AssertionError(f"{arch} fit: {mv}, {epoch_ms}")
+        masks, names = model.predict([name], path)
+        if names != [name] or masks[0].shape != traces.shape \
+                or masks[0].dtype != np.uint8:
+            raise AssertionError(f"{arch} predict returned the wrong output")
+        params = {k: torch.from_numpy(np.asarray(v, np.float32))
+                  for k, v in read_checkpoint(path)["params"].items()}
+        x4 = torch.from_numpy(traces[:4].astype(np.float32))
+        if arch == "stm":
+            rates = model.predict_rates([name], path)[0][0]
+            want = torch.exp(torch.clamp(glm.stm_log_rate(params, x4),
+                                         -30.0, 15.0)).numpy()
+            if not (np.isfinite(rates).all() and (rates >= 0).all()):
+                raise AssertionError("STM rates not finite and >= 0")
+            np.testing.assert_allclose(rates[:4], want, rtol=1e-4, atol=1e-7,
+                                       err_msg="STM rates, card vs CPU")
+            probs = glm.stm_apply(params, x4).numpy()
+        else:
+            try:
+                model.predict_rates([name], path)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("predict_rates accepted a GLM")
+            probs = glm.glm_apply(params, x4).numpy()
+        far = np.abs(probs - 0.5) >= 1e-4
+        if not np.array_equal(masks[0][:4][far], (probs > 0.5)[far]):
+            raise AssertionError(f"{arch} masks differ from the CPU's")
+        # Where an epoch's time goes: a profile of a 20-epoch fit.
+        device_ms, kernels, top = _device_time_per_call(
+            lambda: model.fit([name], nb_epochs=20, error_margin=SPIKE_MARGIN), 1)
+        numbers[arch] = {"epoch_ms": epoch_ms[0], "fit_seconds": fit_s,
+                         "val_F2": mv["F2"], "trn_F2": mt["F2"],
+                         "spike_fraction": float(masks[0].mean()),
+                         "fit20_device_ms": device_ms, "fit20_kernels": kernels,
+                         "fit20_top": top}
+    k1_launches = movie_summary_cuda.launches + movie_fold_cuda.launches
+    numbers["k1_launches"] = k1_launches
+    print(f"GLM/STM full-batch fits on {int(SPIKE_TRACES * 0.8)} traces of "
+          f"{SPIKE_LEN}, {GLM_EPOCHS} epochs: "
+          + "; ".join(f"{a} {numbers[a]['epoch_ms']:.3f} ms an epoch, val F2 "
+                      f"{numbers[a]['val_F2']:.4f}" for a in ("glm", "stm"))
+          + f"; predict and predict_rates agree with the CPU on 4 traces; "
+          f"K1 launches {k1_launches}; {card}", flush=True)
+    for a in ("glm", "stm"):
+        n = numbers[a]
+        print(f"{a} fit of 20 epochs on the device: {n['fit20_kernels']:.0f} "
+              f"kernels, {n['fit20_device_ms']:.2f} ms; most device time: "
+              + "; ".join(f"{k} {ms:.3f} ms" for k, ms in n["fit20_top"])
+              + f"; {card}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return numbers
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1017,6 +1524,11 @@ def main(argv=None):
     tiled_launches, tiled, tiled_movie = timed("tiled", phase_tiled, dev,
                                                main_ctx, args.seed)
     predict = timed("predict", phase_predict, dev, main_ctx, tiled_movie)
+    golden1d_err = timed("golden1d", phase_golden1d, dev)
+    golden1d_errs = timed("train_golden1d", phase_train_golden1d, dev)
+    fit1d, fit1d_ctx = timed("fit1d", phase_fit1d, dev, args.seed, card)
+    predict1d = timed("predict1d", phase_predict1d, dev, fit1d_ctx, card)
+    glm = timed("glm", phase_glm, dev, fit1d_ctx, card)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "deepcalcium_tpu"))
     if bad:
@@ -1026,7 +1538,10 @@ def main(argv=None):
     # below the card's rate.
     k1_bytes = FRAMES * WINDOW * WINDOW * 2 + 2 * WINDOW * WINDOW * 4
     by_path = {"evaluate": eval_launches, "fit": fit_launches,
-               "stream": stream_launches, "tiled": tiled_launches}
+               "stream": stream_launches, "tiled": tiled_launches,
+               "fit1d": fit1d["k1_launches"],
+               "predict1d": predict1d["k1_launches"],
+               "glm": glm["k1_launches"]}
     print(json.dumps({"kernels": [{
         "name": "K1 movie_summary_cuda (+ fold entry movie_fold_cuda)",
         "route": "cuda",
@@ -1041,6 +1556,9 @@ def main(argv=None):
         "fold_bound_ms": fold["bound_ms"], "fold_shape": fold["shape"]}],
         "evaluate_ms": eval_ms, "train_golden_max_abs_err": golden_errs,
         "fit": fit, "stream": stream, "tiled": tiled, "predict": predict,
+        "golden1d_max_abs_err": golden1d_err,
+        "train_golden1d_max_abs_err": golden1d_errs, "fit1d": fit1d,
+        "predict1d": predict1d, "glm": glm, "card": card,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""Import Keras 2.x HDF5 checkpoints of UNet2DS.
+"""Import Keras 2.x HDF5 checkpoints of UNet2DS and UNet1D.
 
 Port of ``deepcalcium_tpu.interop.keras_import`` (``read_keras_weight_groups``,
-``_assign``, ``load_unet2ds_keras``): the reference ships its released
-weights as Keras ``save_model`` HDF5 files (``unet2ds_model.hdf5``). The
-result is (params, state) in the JAX package's layout, as numpy arrays, so
-that ``models.unet2d.from_jax_params`` builds the net from it.
+``_assign``, ``load_unet2ds_keras``, ``load_unet1d_keras``): the reference
+ships its released weights as Keras ``save_model`` HDF5 files
+(``unet2ds_model.hdf5``, ``unet1d_model.hdf5``). The result is (params,
+state) in the JAX package's layout, as numpy arrays, so that
+``models.unet2d.from_jax_params`` or ``models.unet1d.from_jax_params``
+builds the net from it.
 
 Keras 2.0.x HDF5 layout:
 
@@ -12,21 +14,23 @@ Keras 2.0.x HDF5 layout:
     /model_weights/<layer>/ attrs: weight_names = [b"conv2d_1/kernel:0", ...]
     /model_weights/<layer>/<weight path> -> dataset
 
-Keras Conv2D kernels (kh, kw, in, out) and Conv2DTranspose kernels
-(kh, kw, out, in) are the JAX package's HWIO and HWOI; BatchNorm's
+Keras Conv2D kernels (kh, kw, in, out), Conv1D kernels (k, in, out) and
+Conv2DTranspose kernels (kh, kw, out, in) are the JAX package's HWIO, WIO
+and HWOI; BatchNorm's
 [gamma, beta, moving_mean, moving_variance] become params {gamma, beta} and
 state {mean, var}. ``layer_names`` keeps the functional model's build
-order, which is the order of ``unet2d.layer_order``; weightless layers are
-skipped. ``h5py`` is imported only when a file is read.
+order, which is the order of ``unet2d.layer_order`` and
+``unet1d.layer_order``; weightless layers are skipped. ``h5py`` is imported only when a file is read.
 """
 
 import logging
 
 import numpy as np
 
-from deepcalcium_torch.models import unet2d
+from deepcalcium_torch.models import unet1d, unet2d
 
-__all__ = ["read_keras_weight_groups", "load_unet2ds_keras"]
+__all__ = ["read_keras_weight_groups", "load_unet2ds_keras",
+           "load_unet1d_keras"]
 
 logger = logging.getLogger(__name__)
 
@@ -124,4 +128,18 @@ def load_unet2ds_keras(h5path: str, nfb: int | None = None):
                             {"conv": "conv2d"})
     logger.info("Imported %d Keras layers from %s (nfb=%d, up=%s)",
                 len(groups), h5path, nfb, up_mode)
+    return params, state
+
+
+def load_unet1d_keras(h5path: str, nfb: int | None = None):
+    """Keras ``unet1d_model.hdf5`` -> (params, state) of numpy arrays in
+    the JAX package's layout; ``nfb`` is the first conv's output width when
+    not given."""
+    groups = read_keras_weight_groups(h5path)
+    if nfb is None:
+        nfb = int(groups[0][1][0].shape[-1])
+    params, state = _assign(unet1d.layer_order(nfb), groups,
+                            {"conv": "conv1d"})
+    logger.info("Imported %d Keras layers from %s (nfb=%d)",
+                len(groups), h5path, nfb)
     return params, state

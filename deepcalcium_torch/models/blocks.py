@@ -1,8 +1,10 @@
-"""Building blocks of the U-Net family, on NCHW tensors.
+"""Building blocks of the U-Net family, on channels-first tensors: NCHW
+for the 2-D net, NCW for the 1-D one.
 
 Port of ``deepcalcium_tpu.models.blocks``. Semantics follow Keras 2.0.6
 defaults as the JAX package does: SAME stride-1 convs with bias, k=s=2
-transpose convs, 2x2 max-pool, BatchNorm with ``eps=1e-3`` and inverted
+transpose convs, 2x2 and window-2 max-pools, the 1-D net's SAME margin
+max-pool and repeat upsampling, BatchNorm with ``eps=1e-3`` and inverted
 dropout.
 
 ``dtype`` is the compute dtype, as in the JAX package: when set, the input,
@@ -18,9 +20,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BN_EPS", "Conv2d", "ConvTranspose2x2", "BatchNorm", "conv2d",
-           "tconv2x2", "maxpool2", "batch_norm", "batch_stats", "dropout",
-           "dropout_with_mask", "he_normal_"]
+__all__ = ["BN_EPS", "Conv2d", "Conv1d", "ConvTranspose2x2", "BatchNorm",
+           "conv2d", "conv1d", "tconv2x2", "maxpool2", "pool2",
+           "maxpool1d_same", "upsample1d", "batch_norm", "batch_stats",
+           "dropout", "dropout_with_mask", "he_normal_"]
 
 BN_EPS = 1e-3  # Keras 2.0.6 BatchNormalization default epsilon.
 
@@ -48,6 +51,15 @@ def conv2d(x, weight, bias, dtype=None):
     return y + bias[:, None, None]
 
 
+def conv1d(x, weight, bias, dtype=None):
+    """SAME stride-1 conv: (B, Cin, T) x OIW (odd k) -> (B, Cout, T), the
+    bias added after the conv in the compute dtype (``blocks.conv1d``). The
+    JAX package's WIO kernel is OIW permuted by (2, 1, 0)."""
+    x, weight, bias = _cast(dtype, x, weight, bias)
+    y = F.conv1d(x, weight, None, padding=weight.shape[-1] // 2)
+    return y + bias[:, None]
+
+
 def tconv2x2(x, weight, bias, dtype=None):
     """Conv2DTranspose(k=2, s=2, VALID) with a (Cin, Cout, 2, 2) kernel:
     out[b, o, 2i+p, 2j+q] = sum_c x[b, c, i, j] * weight[c, o, p, q] + bias[o]."""
@@ -65,21 +77,58 @@ def maxpool2(x):
     return F.max_pool2d(x, 2)
 
 
+def pool2(x):
+    """MaxPooling1D(2, strides=2) on (B, C, T). The gradient of a window
+    goes to its first element when ``a >= b``, as the JAX package's dense
+    ``pool2_axis`` vjp routes it: PyTorch's CPU and CUDA max-pool kernels
+    keep the first of tied maxima (``torch.maximum`` would split a tied
+    gradient in half). ``tests/test_torch_unet1d.py`` pins this against the
+    JAX vjp and ``chip_smoke.py`` on the card."""
+    return F.max_pool1d(x, 2)
+
+
+def maxpool1d_same(x, window: int):
+    """MaxPooling1D(window, strides=1, padding="SAME") on (B, C, T), the
+    1-D net's margin head (``blocks.maxpool1d``). XLA's SAME pads
+    ``(window - 1) // 2`` low and the rest high, unevenly for an even
+    window, which ``F.max_pool1d`` cannot: the -inf padding is explicit.
+    Each output's gradient goes to the first maximum of its window, as the
+    transpose of XLA's ``reduce_window`` (``select_and_scatter`` with
+    ``>=``) routes it."""
+    if window <= 1:
+        return x
+    lo = (window - 1) // 2
+    xp = F.pad(x, (lo, window - 1 - lo), value=float("-inf"))
+    return F.max_pool1d(xp, window, stride=1)
+
+
+def upsample1d(x):
+    """UpSampling1D(2) on (B, C, T): each sample repeated twice."""
+    return x.repeat_interleave(2, dim=2)
+
+
+def _per_channel(v, x):
+    """A (C,) vector shaped to broadcast over channels-first ``x``."""
+    return v.view((1, -1) + (1,) * (x.dim() - 2))
+
+
 def batch_norm(x, gamma, beta, mean, var):
-    """Eval-mode Keras BN over channels (dim 1). The scale is formed in
-    float32 and cast to ``x.dtype`` with the statistics, as in the JAX
-    package's ``batch_norm(train=False)``."""
+    """Eval-mode Keras BN over channels (dim 1) of a tensor of any rank.
+    The scale is formed in float32 and cast to ``x.dtype`` with the
+    statistics, as in the JAX package's ``batch_norm(train=False)``."""
     inv = torch.rsqrt(var + BN_EPS) * gamma
     dt = x.dtype
-    return ((x - mean.to(dt)[:, None, None]) * inv.to(dt)[:, None, None]
-            + beta.to(dt)[:, None, None])
+    return ((x - _per_channel(mean.to(dt), x)) * _per_channel(inv.to(dt), x)
+            + _per_channel(beta.to(dt), x))
 
 
 def batch_stats(x):
-    """Batch mean and biased variance per channel over (N, H, W), in
-    float32 whatever ``x.dtype`` is (``blocks.batch_norm(train=True)``).
-    Differentiable: the train-mode gradient flows through both."""
-    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+    """Batch mean and biased variance per channel (dim 1) over every other
+    dim, in float32 whatever ``x.dtype`` is
+    (``blocks.batch_norm(train=True)``). Differentiable: the train-mode
+    gradient flows through both."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
     return mean, var
 
 
@@ -115,6 +164,20 @@ class Conv2d(nn.Module):
 
     def forward(self, x, dtype=None):
         return conv2d(x, self.weight, self.bias, dtype)
+
+
+class Conv1d(nn.Module):
+    """SAME 1-D conv holder: ``weight`` OIW, ``bias`` (Cout,); he_normal
+    with fan_in k * Cin (``blocks.init_conv1d``)."""
+
+    def __init__(self, cin, cout, k, generator):
+        super().__init__()
+        self.weight = nn.Parameter(he_normal_(torch.empty(cout, cin, k),
+                                              cin * k, generator))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x, dtype=None):
+        return conv1d(x, self.weight, self.bias, dtype)
 
 
 class ConvTranspose2x2(nn.Module):

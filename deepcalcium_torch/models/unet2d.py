@@ -122,6 +122,12 @@ class UNet2DS(nn.Module):
                 self.add_module(name, B.BatchNorm(cout, momentum))
             cin = cout
 
+    def jax_tree(self, tensors=None):
+        return jax_tree(self, tensors)
+
+    def torch_tensors(self, tree):
+        return torch_tensors(self, tree)
+
     def _cbr_train(self, conv, bn, h):
         y = conv(h, self.compute_dtype)
         mean, var = B.batch_stats(y)

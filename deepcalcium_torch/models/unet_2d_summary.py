@@ -47,10 +47,6 @@ from deepcalcium_torch.utils.runtime import funcname, phase_timer
 __all__ = ["UNet2DSummary", "summarize_series", "summarize_mask",
            "name_dataset"]
 
-# PRNG implementations the JAX package's ``prng_impl`` accepts.
-_PRNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
-
-
 # --- Default dataset accessors (neurofinder HDF5 contract) ------------------
 
 def summarize_series(dspath: str) -> np.ndarray:
@@ -222,9 +218,9 @@ class UNet2DSummary:
             raise ValueError(
                 f"steps_per_dispatch={kdisp} must be >= 1 and divide "
                 f"nb_steps_trn={nb_steps_trn}")
-        if prng_impl not in _PRNG_IMPLS:
+        if prng_impl not in T.PRNG_IMPLS:
             raise ValueError(f"prng_impl={prng_impl!r}: expected one of "
-                             f"{_PRNG_IMPLS}")
+                             f"{T.PRNG_IMPLS}")
         if fast_train not in ("auto", True, False):
             raise ValueError(f"fast_train={fast_train!r}: expected 'auto', "
                              f"True or False")

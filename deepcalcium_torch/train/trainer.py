@@ -10,8 +10,9 @@ Port of ``deepcalcium_tpu.train.trainer``:
   epochs, where the JAX package injects it through
   ``optax.inject_hyperparams``;
 - one train step is a training forward, the mean loss, a backward and an
-  optimizer step; its 7 neuron metrics and the loss stay on the device as
-  float32 scalars until the caller fetches them once per epoch.
+  optimizer step; its metrics (the 7 neuron metrics, or the 5 spike ones)
+  and the loss stay on the device as float32 scalars until the caller
+  fetches them once per epoch.
 
 The JAX package's ``make_multi_step`` (a K-step ``lax.scan``) and
 ``stable_apply_fn`` work around dispatch latency and jit caches that
@@ -21,7 +22,6 @@ PyTorch's eager execution does not have, and are not ported.
 import numpy as np
 import torch
 
-from deepcalcium_torch.models.unet2d import jax_tree, torch_tensors
 from deepcalcium_torch.ops import losses as L
 
 __all__ = ["make_optimizer", "current_lr", "set_lr", "ReduceLROnPlateau",
@@ -31,6 +31,9 @@ __all__ = ["make_optimizer", "current_lr", "set_lr", "ReduceLROnPlateau",
 # optax.adam's defaults.
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
+# PRNG implementations the JAX package's ``fit(prng_impl=...)`` accepts; the
+# port checks the knob and draws dropout from the torch Philox stream.
+PRNG_IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
 
 
 def make_optimizer(model, learning_rate: float = 2e-3,
@@ -61,7 +64,9 @@ def _f32(v):
 def optax_state(model, optimizer) -> dict:
     """The optimizer's state in optax's state-dict layout of
     ``inject_hyperparams(adam)`` (or ``adamw``) over ``model``'s params in
-    the JAX package's layout, as the JAX package checkpoints it::
+    the JAX package's layout, as the JAX package checkpoints it. The model
+    carries its own map to that layout: ``model.jax_tree(tensors)`` (a
+    ``UNet2DS`` or a ``UNet1D``)::
 
         {"count": int32, "hyperparams": {"b1", "b2", "eps", "eps_root",
          "learning_rate"[, "weight_decay"]}, "hyperparams_states": {},
@@ -77,8 +82,8 @@ def optax_state(model, optimizer) -> dict:
     count = np.asarray(steps.pop() if steps else 0, np.int32)
 
     def moments(key):
-        return jax_tree(model, {n: s[key] if s else torch.zeros_like(named[n])
-                                for n, s in states.items()})
+        return model.jax_tree({n: s[key] if s else torch.zeros_like(named[n])
+                               for n, s in states.items()})
 
     group = optimizer.param_groups[0]
     b1, b2 = group["betas"]
@@ -99,14 +104,15 @@ def optax_state(model, optimizer) -> dict:
 @torch.no_grad()
 def load_optax_state_(model, optimizer, opt_state: dict):
     """Restore Adam's moments, step count and learning rate from optax's
-    state dict (the inverse of :func:`optax_state`), in place."""
+    state dict (the inverse of :func:`optax_state`), in place, through the
+    model's ``torch_tensors(tree)``."""
     if ("weight_decay" in opt_state["hyperparams"]) != isinstance(
             optimizer, torch.optim.AdamW):
         raise ValueError("the checkpoint's optimizer and this one differ in "
                          "weight decay (Adam against AdamW)")
     adam = opt_state["inner_state"]["0"]
-    mu = torch_tensors(model, adam["mu"])
-    nu = torch_tensors(model, adam["nu"])
+    mu = model.torch_tensors(adam["mu"])
+    nu = model.torch_tensors(adam["nu"])
     step = float(adam["count"])
     for name, p in model.named_parameters():
         optimizer.state[p] = {
@@ -170,7 +176,7 @@ class CosineDecay:
 
 
 def make_train_step(model, loss_fn, optimizer, metric_fns=None):
-    """Build the train step of ``model`` (a ``UNet2DS``).
+    """Build the train step of ``model`` (a ``UNet2DS`` or a ``UNet1D``).
 
     # Arguments
         loss_fn: f(yt, yp) -> tensor of any shape; its mean is the loss.
@@ -210,8 +216,8 @@ def ema_update(ema, params, decay: float):
 
 
 def make_eval_forward(model):
-    """Inference forward: (B, H, W) -> (B, H, W) probabilities with the BN
-    running statistics."""
+    """Inference forward: (B, H, W) -> (B, H, W) probabilities (or (B, T)
+    -> (B, T) for a ``UNet1D``) with the BN running statistics."""
 
     @torch.inference_mode()
     def fwd(x):

@@ -184,3 +184,74 @@ def test_bf16_train_step_lowers_the_loss_on_card(cuda_device):
     losses = [step(x, y, gen)["loss"].item() for _ in range(5)]
     assert np.isfinite(losses).all()
     assert losses[-1] < losses[0]
+
+
+# --- the spike path ------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_1d_pool_tie_routing_on_card(cuda_device, dtype):
+    """The window-2 pool and the margin head (windows 1-8) on the card send
+    each tied gradient to its window's first maximum, as the JAX package's
+    vjps route it (``chip_smoke.check_1d_tie_routing``, integer
+    cotangents so that only the routing is compared)."""
+    from chip_smoke import check_1d_tie_routing
+
+    check_1d_tie_routing(cuda_device, dtype)
+
+
+def test_unet1d_on_card_matches_cpu(cuda_device):
+    """Eval forward of a random nfb=4 UNet1D at margin 3 (an even window):
+    the card at float32 with TF32 off against the CPU, rtol 1e-4 atol 1e-6
+    (sums in another order)."""
+    from deepcalcium_torch.models.unet1d import UNet1D
+
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 272)).astype(np.float32))
+    model = UNet1D(nfb=4, margin=3, generator=torch.Generator().manual_seed(5)).eval()
+    with torch.no_grad():
+        cpu = model(x)
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            gpu = model.to(cuda_device)(x.to(cuda_device)).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+    torch.testing.assert_close(gpu, cpu, rtol=1e-4, atol=1e-6)
+
+
+def test_bf16_1d_train_step_lowers_the_loss_on_card(cuda_device):
+    """5 bf16 UNet1D train steps (nfb=4, dropout on, wbce pos=2) on one
+    fixed batch: the loss stays finite and falls."""
+    from deepcalcium_torch.models.unet1d import UNet1D
+    from deepcalcium_torch.ops import losses
+    from deepcalcium_torch.train import trainer
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 256)).astype(np.float32))
+    y = (x > 1.0).float()
+    model = UNet1D(nfb=4, compute_dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    step = trainer.make_train_step(
+        model, lambda yt, yp: losses.weighted_binary_crossentropy(yt, yp, 2.0),
+        trainer.make_optimizer(model, 2e-3), dict(losses.SPIKE_METRICS))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x, y = x.to(cuda_device), y.to(cuda_device)
+    losses_ = [step(x, y, gen)["loss"].item() for _ in range(5)]
+    assert np.isfinite(losses_).all()
+    assert losses_[-1] < losses_[0]
+
+
+@pytest.mark.parametrize("arch", ["glm", "stm"])
+def test_glm_models_on_card_match_cpu(cuda_device, arch):
+    """The GLM and STM functions on the card against the CPU, rtol 1e-5
+    atol 1e-6 (float32 sums in another order)."""
+    from deepcalcium_torch.models import glm_spikes as glm
+
+    g = torch.Generator().manual_seed(3)
+    params = glm.stm_init(g, 41) if arch == "stm" else glm.glm_init(g, 41)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (5, 1000)).astype(np.float32))
+    fn = glm.stm_apply if arch == "stm" else glm.glm_apply
+    cpu = fn(params, x)
+    gpu = fn({k: v.to(cuda_device) for k, v in params.items()},
+             x.to(cuda_device)).cpu()
+    torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-6)

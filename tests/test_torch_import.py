@@ -21,8 +21,9 @@ def _python(*args, timeout=180):
 
 
 def test_port_and_chip_smoke_never_import_jax():
-    """Nor the JAX package: the port stands on its own. Nor h5py, PIL or
-    requests at import: the card machine has none of them."""
+    """Nor the JAX package: the port stands on its own. Nor h5py, PIL,
+    requests or matplotlib at import: the card machine has none of
+    them."""
     code = (
         "import sys\n"
         "import deepcalcium_torch.models.unet_2d_summary\n"
@@ -44,12 +45,16 @@ def test_port_and_chip_smoke_never_import_jax():
         "import deepcalcium_torch.data.tiff_native\n"
         "import deepcalcium_torch.train.evaluate\n"
         "import deepcalcium_torch.ops.summary\n"
+        "import deepcalcium_torch.models.unet1d\n"
+        "import deepcalcium_torch.models.unet_1d_segmentation\n"
+        "import deepcalcium_torch.models.glm_spikes\n"
+        "import deepcalcium_torch.models.c2s_segmentation\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu'))\n"
         "assert not bad, bad\n"
         "lazy = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('h5py', 'PIL', 'requests'))\n"
+        "('h5py', 'PIL', 'requests', 'matplotlib'))\n"
         "assert not lazy, lazy\n"
         "print('clean')\n")
     proc = _python("-c", code)
