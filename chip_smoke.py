@@ -42,7 +42,21 @@ Phases, one line each, in order:
     best checkpoint at batch 32, timed; at float32 (TF32 off) batch 8 and
     batch 32 give the same masks away from the threshold;
 16. ``GLMSegmentation`` fit, predict and ``predict_rates`` for the GLM and
-    the STM on the same traces, with the ms of a full-batch epoch.
+    the STM on the same traces, with the ms of a full-batch epoch;
+17. per-frame segmentation at full width: ``segment_movie`` on a host
+    1024x512x512 int16 movie at nfb=32, bfloat16, slab 64, held bit for bit
+    against a plain slab-by-slab loop; a ragged 70x500x470 call at float32
+    (TF32 off) against a straightforward per-frame composition through the
+    unfolded net; then frames/s, device time and idle share;
+18. the stencil mask summary of 300 neurons on 512x512 on the card, equal
+    bit for bit to the CPU's, a subset of the exact walk's, and equal to it
+    on separated neurons;
+19. the command line, ``deepcalcium_torch.cli.main([...])`` with no
+    ``--device``: ``evaluate-movie``, ``segment``, ``parity-golden``,
+    ``predict``, ``spikes-train --arch glm`` and ``spikes-predict``. This
+    machine has no h5py, so the four private functions the commands get
+    their wrappers and movies through are replaced with ones that hand over
+    in-memory arrays through the wrappers' injection points.
 Then one JSON line with each kernel's record and the paths' numbers, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises, so the exit code is non-zero and no
@@ -89,9 +103,10 @@ def _timed_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_time_per_call(fn, calls):
+def _device_time_per_call(fn, calls, skip=()):
     """Kernel time and kernel launches per call of ``fn`` from
-    ``torch.profiler``, and the 5 kernels that take the most time."""
+    ``torch.profiler``, and the 5 kernels that take the most time. Device
+    events whose name starts with one of ``skip`` are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,7 +119,8 @@ def _device_time_per_call(fn, calls):
     # step's) that span kernels already counted.
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(tuple(skip))]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     total_ms = sum(e.self_device_time_total for e in kernels) / calls / 1e3
     launches = sum(e.count for e in kernels) / calls
@@ -386,7 +402,7 @@ def phase_main(dev, seed, t):
           f"TFLOP/s bf16); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return launches, ms, {"movie": movie, "params": params, "state": state,
-                          "mask": mask, "prob": prob}
+                          "mask": mask, "prob": prob, "truth": truth}
 
 
 # Metrics of the train-step goldens that round no prediction.
@@ -778,7 +794,7 @@ def phase_stream(dev, main):
                                                movie_summary_cuda)
     from deepcalcium_torch.train.evaluate import evaluate_movie_streaming
 
-    host = main["movie"].cpu().numpy()
+    host = main["host"] = main["movie"].cpu().numpy()
     model = UNet2DSummary(compute_dtype=torch.bfloat16)._inference_net(
         main["params"], main["state"], (WINDOW, WINDOW), "auto")
     torch.backends.cudnn.deterministic = True
@@ -1495,6 +1511,375 @@ def phase_glm(dev, fit_ctx, card):
     return numbers
 
 
+# --- Per-frame segmentation, the stencil, the command line ------------------
+
+SEG_FRAMES, SEG_SLAB = 1024, 64
+SEG_RAGGED = (70, 500, 470)   # T % slab != 0; H, W % 16 != 0
+
+
+def _znorm_pad16(x):
+    """Per-frame z-norm (population std plus 1e-6) of (B, H, W) float32
+    frames, reflect-padded on the high sides to multiples of 16."""
+    import torch.nn.functional as F
+
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    std = x.std(dim=(1, 2), correction=0, keepdim=True) + 1e-6
+    x = (x - mean) / std
+    h, w = x.shape[1:]
+    return F.pad(x[:, None], (0, -w % 16, 0, -h % 16), mode="reflect")[:, 0]
+
+
+def straightforward_segment(net, host, dev, batch, threshold=0.5):
+    """``segment_movie`` written out plainly, one batch at a time with
+    nothing in flight: copy, z-norm, pad, net, crop, threshold, copy back.
+    Returns (masks uint8, probs float32) on the host."""
+    import numpy as np
+    import torch
+
+    t, h, w = host.shape
+    masks = np.empty((t, h, w), np.uint8)
+    probs = np.empty((t, h, w), np.float32)
+    with torch.inference_mode():
+        for i in range(0, t, batch):
+            x = torch.from_numpy(host[i:i + batch]).to(dev).to(torch.float32)
+            p = net(_znorm_pad16(x))[:, :h, :w]
+            probs[i:i + batch] = p.cpu().numpy()
+            masks[i:i + batch] = (p > threshold).to(torch.uint8).cpu().numpy()
+    return masks, probs
+
+
+def phase_segment(dev, main, card):
+    """``segment_movie`` at the published width on a host int16 movie."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.movie_segmentation import segment_movie
+    from deepcalcium_torch.models.unet2d import forward_flops, from_jax_params
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+
+    params, state = main["params"], main["state"]
+    host = np.ascontiguousarray(main["host"][:SEG_FRAMES])
+    t, h, w = SEG_RAGGED
+    ragged = np.ascontiguousarray(main["host"][-t:, :h, :w])
+    movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+
+    # (a) Full size, bf16: the pipelined call against the plain loop at the
+    # same slab size, under deterministic cuDNN: bit for bit.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        masks = segment_movie(params, state, host, slab=SEG_SLAB)  # warm-up too
+        folded = from_jax_params(params, state, torch.bfloat16, dev).eval().fold()
+        want, _ = straightforward_segment(folded, host, dev, SEG_SLAB)
+        if masks.shape != host.shape or masks.dtype != np.uint8:
+            raise AssertionError(f"segment_movie returned {masks.shape} {masks.dtype}")
+        if not np.array_equal(masks, want):
+            raise AssertionError(
+                f"pipelined segment_movie differs from the plain loop on "
+                f"{(masks != want).mean():.4%} of pixels")
+        rmasks_bf16 = segment_movie(params, state, ragged, slab=SEG_SLAB)
+        # (b) Ragged, float32 with TF32 off, against the unfolded net frame
+        # by frame (batches of 25: another batch size than the slab's).
+        torch.backends.cudnn.allow_tf32 = False
+        rmasks = segment_movie(params, state, ragged, slab=SEG_SLAB,
+                               compute_dtype=None)
+        plain = from_jax_params(params, state, device=dev).eval()
+        rwant, rprobs = straightforward_segment(plain, ragged, dev, 25)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+    differ = rmasks != rwant
+    dist = np.abs(rprobs - 0.5)
+    if rmasks.shape != ragged.shape or (differ & (dist >= 1e-5)).any():
+        raise AssertionError(
+            f"ragged f32 segment_movie differs from the straightforward "
+            f"composition on {int(differ.sum())} pixels, the farthest "
+            f"{dist[differ].max():.3g} from the threshold")
+    bf16_share = float((rmasks_bf16 != rmasks).mean())
+    # bf16 convs move a probability by about 1e-2: only pixels that near
+    # the threshold may flip.
+    if ((rmasks_bf16 != rmasks) & (dist > 0.1)).any():
+        raise AssertionError("bf16 masks differ from f32 far from the threshold")
+
+    # (c) Time, cuDNN's default settings: host clock over whole calls.
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segment_movie(params, state, host, slab=SEG_SLAB)
+        runs.append(time.perf_counter() - t0)
+    # What a call spends before its first slab: building the folded net.
+    t0 = time.perf_counter()
+    from_jax_params(params, state, torch.bfloat16, dev).eval().fold()
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    t0 = time.perf_counter()
+    device_ms, kernels, top = _device_time_per_call(
+        lambda: segment_movie(params, state, host, slab=SEG_SLAB), 1,
+        skip=("Memcpy", "Memset"))
+    profiled_s = time.perf_counter() - t0
+    k1_launches = movie_summary_cuda.launches + movie_fold_cuda.launches
+    flops = forward_flops(WINDOW, WINDOW, NFB)
+    best = min(runs)
+    numbers = {
+        "frames": SEG_FRAMES, "slab": SEG_SLAB, "seconds": runs,
+        "frames_per_s": [SEG_FRAMES / r for r in runs],
+        "ms_per_slab": [r * 1e3 / (SEG_FRAMES / SEG_SLAB) for r in runs],
+        "tflops": SEG_FRAMES * flops / best / 1e12,
+        "device_ms": device_ms, "kernels": kernels,
+        "profiled_call_seconds": profiled_s,
+        "device_idle": 1.0 - device_ms / (best * 1e3),
+        "net_setup_ms": setup_ms,
+        "peak_gib": peak_gib, "mask_fraction": float(masks.mean()),
+        "ragged": list(SEG_RAGGED),
+        "ragged_f32_mismatches": int(differ.sum()),
+        "ragged_f32_within_1e-5": int((dist < 1e-5).sum()),
+        "ragged_bf16_vs_f32_differ_fraction": bf16_share,
+        "k1_launches": k1_launches}
+    print(f"segment_movie nfb={NFB} bf16 slab {SEG_SLAB} on a host int16 "
+          f"{tuple(host.shape)} movie: masks bitwise equal to the plain "
+          f"slab loop; ragged {SEG_RAGGED} at f32 TF32 off against the "
+          f"unfolded net frame by frame: {int(differ.sum())} pixels differ, "
+          f"all within 1e-5 of the threshold ({int((dist < 1e-5).sum())} "
+          f"pixels there); bf16 differs from f32 on {bf16_share:.4%}; K1 "
+          f"launches {k1_launches}; {card}", flush=True)
+    print(f"segment.frames_per_s "
+          f"{', '.join(f'{v:.1f}' for v in numbers['frames_per_s'])} "
+          f"({', '.join(f'{v:.2f}' for v in numbers['ms_per_slab'])} ms a "
+          f"slab, {numbers['tflops']:.1f} TFLOP/s bf16 over the fastest "
+          f"call); on the device: {kernels:.0f} kernels, {device_ms:.1f} ms "
+          f"of them a call, so the card idles {numbers['device_idle']:.1%} "
+          f"(building the folded net alone takes {setup_ms:.1f} ms of a "
+          f"call); peak memory {peak_gib:.2f} GiB; most device time: "
+          + "; ".join(f"{n} {ms:.1f} ms" for n, ms in top) + f"; {card}",
+          flush=True)
+    return numbers
+
+
+def phase_stencil(dev, seed, card):
+    """``mask_summary_stencil`` on the card against the CPU and the exact
+    walk."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.ops.mask_summary import (id_map_from_stack,
+                                                    mask_summary_exact,
+                                                    mask_summary_stencil)
+
+    rng = np.random.default_rng(seed + 18)
+    masks = _neuron_masks(rng, (WINDOW, WINDOW), 300)
+    on_card = mask_summary_stencil(masks)
+    if on_card.device.type != "cuda" or on_card.dtype != torch.float32:
+        raise AssertionError(f"stencil returned {on_card.device} {on_card.dtype}")
+    got = on_card.cpu().numpy()
+    if not np.array_equal(got, mask_summary_stencil(masks, device="cpu").numpy()):
+        raise AssertionError("stencil on the card differs from the CPU's")
+    for a, b in zip(id_map_from_stack(masks), id_map_from_stack(masks, "cpu")):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("id_map_from_stack differs from the CPU's")
+    exact = mask_summary_exact(masks)
+    if ((got == 1) & (exact == 0)).any():
+        raise AssertionError("the stencil kept a pixel the exact walk deleted")
+    # Separated neurons: disks of radius 5 on a 32-pixel grid.
+    yy, xx = np.mgrid[0:WINDOW, 0:WINDOW]
+    apart = np.stack([((yy - cy) ** 2 + (xx - cx) ** 2 <= 25).astype(np.int8)
+                      for cy in range(16, WINDOW, 32)
+                      for cx in range(16, WINDOW, 32)])
+    if not np.array_equal(mask_summary_stencil(apart).cpu().numpy(),
+                          mask_summary_exact(apart)):
+        raise AssertionError("stencil differs from the exact walk on "
+                             "separated neurons")
+    on_dev = torch.from_numpy(masks).to(dev)
+    ms = _timed_ms(lambda: mask_summary_stencil(on_dev), 10)
+    numbers = {"neurons": int(masks.shape[0]), "ms": ms,
+               "kept": int(got.sum()), "exact_kept": int(exact.sum())}
+    print(f"stencil mask summary, {masks.shape[0]} neurons on {WINDOW}^2: "
+          f"card = CPU bit for bit; keeps {int(got.sum())} of the exact "
+          f"walk's {int(exact.sum())} pixels and none besides; equal to the "
+          f"walk on {apart.shape[0]} separated neurons; {ms:.3f} ms a call "
+          f"from a stack on the card; {card}", flush=True)
+    return numbers
+
+
+class _HostMovie:
+    """An in-memory stand-in for an open HDF5 dataset: a shape, a dtype and
+    slicing, so that a command takes the path it takes for a file."""
+
+    def __init__(self, array):
+        self._array = array
+        self.shape, self.dtype = array.shape, array.dtype
+
+    def __getitem__(self, key):
+        return self._array[key]
+
+
+def phase_cli(dev, main, spikes_ctx, card):
+    """The command line on the card, through ``cli.main([...])``."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch import cli
+    from deepcalcium_torch.models.glm_spikes import GLMSegmentation
+    from deepcalcium_torch.models.movie_segmentation import segment_movie
+    from deepcalcium_torch.models.unet_2d_summary import UNet2DSummary
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+    from deepcalcium_torch.train.checkpoints import save_checkpoint
+
+    out = REPO / "build" / "chip_smoke_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "cp").mkdir(parents=True)
+    ckpt = str(out / "unet2ds_random.ckpt")
+    save_checkpoint(ckpt, main["params"], main["state"])
+
+    movies = {"full.hdf5": main["host"], "short.hdf5": main["host"][:100]}
+    mean = movie_summary_cuda(main["movie"])[0]
+    z = ((mean - mean.mean()) / mean.std(correction=0)).cpu().numpy()
+    names = ["neurofinder.00.00", "neurofinder.01.00"]
+    summaries, truths = {}, {}
+    for k, name in enumerate(names):
+        # The datasets directory the registry looks in: a placeholder file
+        # marks each dataset as downloaded and ingested.
+        ds = out / "dc" / "datasets" / "neurons_nf" / name / "dataset.hdf5"
+        ds.parent.mkdir(parents=True)
+        ds.touch()
+        # A 256x256 quarter each (reflect-padded to the window): the random
+        # net marks nearly every pixel, and scoring and writing one region
+        # of that many pixels is host time that shows nothing here.
+        summaries[str(ds)] = np.ascontiguousarray(np.rot90(z, k)[:256, :256])
+        truths[str(ds)] = np.ascontiguousarray(
+            np.rot90(main["truth"], k)[:256, :256])
+    written = {}
+    devices = []
+
+    def neuron_wrapper(args, **kw):
+        devices.append(args.device)
+        return UNet2DSummary(
+            cpdir=cli._neurons_cpdir(args.checkpoints_dir), device=args.device,
+            dataset_name_func=lambda p: Path(p).parent.name,
+            series_summary_func=summaries.__getitem__,
+            mask_summary_func=truths.__getitem__, **kw)
+
+    def spike_wrapper(args):
+        devices.append(args.device)
+        return GLMSegmentation(
+            cpdir=args.checkpoints_dir, arch=args.arch, device=args.device,
+            dataset_attrs_func=lambda n: {"name": n},
+            dataset_traces_func=lambda n: spikes_ctx["traces"][:40],
+            dataset_spikes_func=lambda n: spikes_ctx["spikes"][:40])
+
+    @contextlib.contextmanager
+    def open_raw(path):
+        yield _HostMovie(movies[path])
+
+    def run(argv):
+        """``cli.main(argv)`` with its printed lines returned, and shown."""
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+        finally:
+            print(buf.getvalue(), end="", flush=True)
+        return buf.getvalue()
+
+    seams = {"_neuron_wrapper": neuron_wrapper, "_spike_wrapper": spike_wrapper,
+             "_open_raw": open_raw,
+             "_write_masks": lambda path, masks: written.__setitem__(path, masks)}
+    saved = {k: getattr(cli, k) for k in seams}
+    old_dir = os.environ.get("DEEPCALCIUM_TPU_DIR")
+    os.environ["DEEPCALCIUM_TPU_DIR"] = str(out / "dc")
+    for k, fn in seams.items():
+        setattr(cli, k, fn)
+    torch.backends.cudnn.deterministic = True
+    movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        # evaluate-movie: bf16, 8x TTA, the streaming fold.
+        npz = str(out / "ev.npz")
+        run(["evaluate-movie", "full.hdf5", "-m", ckpt, "--dtype", "bfloat16",
+             "-c", str(out / "cp"), "--out", npz])
+        fold_launches = movie_fold_cuda.launches
+        with np.load(npz) as f:
+            if not (np.array_equal(f["mask"], main["mask"])
+                    and np.array_equal(f["prob"], main["prob"])):
+                raise AssertionError("evaluate-movie's mask/prob differ from "
+                                     "the streaming evaluate's")
+        if fold_launches != math.ceil(FRAMES / FOLD_CHUNK) or movie_summary_cuda.launches:
+            raise AssertionError(f"evaluate-movie launched K1's fold "
+                                 f"{fold_launches} times")
+        # segment: the default dtype (bf16), masks handed to the writer.
+        run(["segment", "short.hdf5", "-m", ckpt, "--slab", "32",
+             "-c", str(out / "cp")])
+        want = segment_movie(main["params"], main["state"], movies["short.hdf5"],
+                             slab=32)
+        if list(written) != ["short_masks.hdf5"] or not np.array_equal(
+                written["short_masks.hdf5"], want):
+            raise AssertionError("segment wrote other masks than segment_movie's")
+        # parity-golden: passes at a wide tolerance, exit code 1 otherwise.
+        paths = list(summaries)
+        common = ["-m", ckpt, "--dtype", "bfloat16", "-c", str(out / "cp")]
+        text = run(["parity-golden", "--paths", *paths, *common, "--tta",
+                    "both", "--tol", "1.0"])
+        if "parity-golden: PASS" not in text or text.count(" -> ok") != 6:
+            raise AssertionError(f"parity-golden did not pass: {text}")
+        try:
+            run(["parity-golden", "--paths", paths[1], *common, "--tta", "on",
+                 "--tol", "0.000001", "--expect-tta", "9", "9", "9"])
+        except SystemExit as e:
+            if e.code != 1:
+                raise AssertionError(f"parity-golden exit code {e.code}")
+        else:
+            raise AssertionError("parity-golden passed an impossible expectation")
+        # predict: both passes, the timestamped and the latest submissions.
+        run(["predict", names[1], "-m", ckpt, "--dtype", "bfloat16",
+             "-c", str(out / "cp")])
+        subs = sorted(p.name for p in (out / "cp").glob("submission_*.json"))
+        if len(subs) != 4 or not {"submission_latest.json",
+                                  "submission_latest_TTA.json"} <= set(subs):
+            raise AssertionError(f"predict wrote {subs}")
+        with open(out / "cp" / "submission_latest_TTA.json") as fp:
+            sub = json.load(fp)
+        if [e["dataset"] for e in sub] != ["01.00"] or not all(
+                e["regions"] for e in sub):
+            raise AssertionError("bad submission")
+        # One spike command each way.
+        text = run(["spikes-train", "synthetic.spikes", "--arch", "glm", "-e",
+                    "50", "-c", str(out / "glm")])
+        best = text.strip().splitlines()[-1].split()[1]
+        text = run(["spikes-predict", "synthetic.spikes", "--arch", "glm", "-m",
+                    best, "-c", str(out / "glm")])
+        if not text.startswith("synthetic.spikes: (40, 30011), "):
+            raise AssertionError(f"spikes-predict printed {text!r}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for k, fn in saved.items():
+            setattr(cli, k, fn)
+        if old_dir is None:
+            del os.environ["DEEPCALCIUM_TPU_DIR"]
+        else:
+            os.environ["DEEPCALCIUM_TPU_DIR"] = old_dir
+    seconds = time.perf_counter() - t0
+    launches = movie_fold_cuda.launches + movie_summary_cuda.launches
+    if set(devices) != {"cuda"}:
+        raise AssertionError(f"commands ran on {set(devices)}")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"cli through main([...]) with in-memory movies and summaries in "
+          f"place of HDF5 files (no h5py here), no --device: evaluate-movie "
+          f"= the streaming evaluate bit for bit, K1 fold launches "
+          f"{fold_launches}; segment = segment_movie; parity-golden PASS at "
+          f"tol 1.0 and exit code 1 at an impossible expectation; predict "
+          f"wrote {len(subs)} submissions; spikes-train glm and "
+          f"spikes-predict ran; {seconds:.1f} s; {card}", flush=True)
+    return launches, {"seconds": seconds, "fold_launches": fold_launches,
+                      "submissions": subs}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1529,6 +1914,9 @@ def main(argv=None):
     fit1d, fit1d_ctx = timed("fit1d", phase_fit1d, dev, args.seed, card)
     predict1d = timed("predict1d", phase_predict1d, dev, fit1d_ctx, card)
     glm = timed("glm", phase_glm, dev, fit1d_ctx, card)
+    segment = timed("segment", phase_segment, dev, main_ctx, card)
+    stencil = timed("stencil", phase_stencil, dev, args.seed, card)
+    cli_launches, cli = timed("cli", phase_cli, dev, main_ctx, fit1d_ctx, card)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "deepcalcium_tpu"))
     if bad:
@@ -1541,7 +1929,8 @@ def main(argv=None):
                "stream": stream_launches, "tiled": tiled_launches,
                "fit1d": fit1d["k1_launches"],
                "predict1d": predict1d["k1_launches"],
-               "glm": glm["k1_launches"]}
+               "glm": glm["k1_launches"],
+               "segment": segment["k1_launches"], "cli": cli_launches}
     print(json.dumps({"kernels": [{
         "name": "K1 movie_summary_cuda (+ fold entry movie_fold_cuda)",
         "route": "cuda",
@@ -1558,7 +1947,8 @@ def main(argv=None):
         "fit": fit, "stream": stream, "tiled": tiled, "predict": predict,
         "golden1d_max_abs_err": golden1d_err,
         "train_golden1d_max_abs_err": golden1d_errs, "fit1d": fit1d,
-        "predict1d": predict1d, "glm": glm, "card": card,
+        "predict1d": predict1d, "glm": glm, "segment": segment,
+        "stencil": stencil, "cli": cli, "card": card,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Port of ``deepcalcium_tpu.metrics.neurofinder`` (numpy and scipy only), so
 that the port scores its masks without importing the JAX package. Same
 semantics:
 
-- regions are the 8-connected components of a mask, in label order; a
-  region's center is the mean of its pixel coordinates;
+- regions are the 8-connected components of a mask, in label order, held
+  as (N, 2) coordinate arrays (or :class:`Region` objects, which cache
+  their center); a region's center is the mean of its pixel coordinates;
 - ground-truth regions are matched in order to the nearest remaining
   predicted center, closer than ``threshold`` (unbounded by default);
 - recall = matched / |truth|, precision = matched / |prediction|;
@@ -16,10 +17,34 @@ semantics:
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["label_mask", "mask_to_regions", "centers", "shapes",
-           "nf_mask_metrics"]
+__all__ = ["Region", "label_mask", "mask_to_regions", "regions_to_mask",
+           "match_centers", "centers", "shapes", "nf_mask_metrics"]
 
 _STRUCT8 = np.ones((3, 3), dtype=np.int32)
+
+
+class Region:
+    """A set of pixel coordinates with its cached center (their mean)."""
+
+    __slots__ = ("coordinates", "center")
+
+    def __init__(self, coordinates):
+        self.coordinates = np.asarray(coordinates, dtype=np.int64)
+        if self.coordinates.ndim != 2 or self.coordinates.shape[1] != 2:
+            raise ValueError("coordinates must be (N, 2)")
+        self.center = self.coordinates.mean(axis=0)
+
+    def __len__(self):
+        return len(self.coordinates)
+
+
+def _coords(region) -> np.ndarray:
+    return region.coordinates if isinstance(region, Region) else region
+
+
+def _center(region) -> np.ndarray:
+    return (region.center if isinstance(region, Region)
+            else region.mean(axis=0))
 
 
 def label_mask(m: np.ndarray) -> np.ndarray:
@@ -42,19 +67,29 @@ def mask_to_regions(m: np.ndarray) -> list:
     return regions
 
 
-def _match(a, b, threshold):
-    """For each region of ``a`` in order: the index of the nearest
-    remaining center of ``b`` closer than ``threshold``, else None."""
-    if not b:
+def regions_to_mask(regions, shape) -> np.ndarray:
+    """List of regions -> binary 2-D uint8 mask."""
+    m = np.zeros(shape, dtype=np.uint8)
+    for r in regions:
+        c = _coords(r)
+        m[c[:, 0], c[:, 1]] = 1
+    return m
+
+
+def match_centers(a, b, threshold=np.inf):
+    """Greedy sequential center matching: for each region of ``a`` in
+    order, the index of the nearest remaining center of ``b`` closer than
+    ``threshold``, else None."""
+    if len(b) == 0:
         return [None] * len(a)
-    targets = np.stack([r.mean(axis=0) for r in b])
+    targets = np.stack([_center(r) for r in b])
     alive = np.ones(len(b), dtype=bool)
     out = []
     for ra in a:
         if not alive.any():
             out.append(None)
             continue
-        d = np.linalg.norm(targets - ra.mean(axis=0), axis=1)
+        d = np.linalg.norm(targets - _center(ra), axis=1)
         d[~alive] = np.inf
         i = int(np.argmin(d))
         if d[i] < threshold:
@@ -67,7 +102,7 @@ def _match(a, b, threshold):
 
 def centers(a, b, threshold=np.inf):
     """(recall, precision) of the center matching of ``b`` to truth ``a``."""
-    n = sum(i is not None for i in _match(a, b, threshold))
+    n = sum(i is not None for i in match_centers(a, b, threshold))
     return (n / float(len(a)) if a else 0.0,
             n / float(len(b)) if b else 0.0)
 
@@ -75,11 +110,11 @@ def centers(a, b, threshold=np.inf):
 def shapes(a, b, threshold=np.inf):
     """(inclusion, exclusion) averaged over matched pairs."""
     incl, excl = [], []
-    for j, i in enumerate(_match(a, b, threshold)):
+    for j, i in enumerate(match_centers(a, b, threshold)):
         if i is None:
             continue
-        inter = len({tuple(c) for c in a[j].tolist()}
-                    & {tuple(c) for c in b[i].tolist()})
+        inter = len({tuple(c) for c in _coords(a[j]).tolist()}
+                    & {tuple(c) for c in _coords(b[i]).tolist()})
         incl.append(inter / float(len(a[j])))
         excl.append(inter / float(len(b[i])))
     if not incl:

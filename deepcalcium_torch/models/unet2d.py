@@ -25,7 +25,7 @@ from deepcalcium_torch.models import blocks as B
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet2DS", "fold_bn",
            "from_jax_params", "to_jax_params", "load_jax_params_",
-           "jax_tree", "torch_tensors", "forward_flops"]
+           "jax_tree", "torch_tensors", "param_count", "forward_flops"]
 
 _F = 32
 _DEC_IN = {"dec3a_conv": 8, "dec2a_conv": 4, "dec1a_conv": 2, "dec0a_conv": 1}
@@ -300,6 +300,11 @@ def to_jax_params(model: UNet2DS):
             state[name] = {"mean": bn.running_mean.detach().cpu().numpy().copy(),
                            "var": bn.running_var.detach().cpu().numpy().copy()}
     return params, state
+
+
+def param_count(model: UNet2DS) -> int:
+    """Weights of the net, as the JAX package counts its params leaves."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def forward_flops(h: int, w: int, nfb: int = _F,

@@ -25,7 +25,8 @@ from deepcalcium_torch.metrics.neurofinder import nf_mask_metrics
 from deepcalcium_torch.models.unet2d import (UNet2DS, from_jax_params,
                                              load_jax_params_, to_jax_params)
 from deepcalcium_torch.ops import losses as L
-from deepcalcium_torch.ops.mask_summary import mask_summary_exact
+from deepcalcium_torch.ops.mask_summary import (mask_summary_exact,
+                                                mask_summary_stencil)
 from deepcalcium_torch.train import trainer as T
 from deepcalcium_torch.train.callbacks import CSVMetricsLogger, plot_metrics_grid
 from deepcalcium_torch.train.checkpoints import (latest_checkpoint,
@@ -45,7 +46,7 @@ from deepcalcium_torch.utils.profiling import trace
 from deepcalcium_torch.utils.runtime import funcname, phase_timer
 
 __all__ = ["UNet2DSummary", "summarize_series", "summarize_mask",
-           "name_dataset"]
+           "summarize_mask_stencil", "name_dataset"]
 
 # --- Default dataset accessors (neurofinder HDF5 contract) ------------------
 
@@ -58,9 +59,7 @@ def summarize_series(dspath: str) -> np.ndarray:
     return (summ - np.mean(summ)) / np.std(summ)
 
 
-def summarize_mask(dspath: str) -> np.ndarray:
-    """Flattened, conflict-eroded mask summary of a dataset file (the exact
-    sequential walk, ``ops.mask_summary.mask_summary_exact``)."""
+def _read_masks(dspath: str) -> np.ndarray:
     import h5py
 
     with h5py.File(dspath, "r") as fp:
@@ -68,8 +67,28 @@ def summarize_mask(dspath: str) -> np.ndarray:
             raise KeyError(
                 f"{dspath} has no ground-truth masks (a .test set?) — "
                 f"scoring/outlines against ground truth need masks/raw")
-        msks = fp["masks/raw"][...]
-    return mask_summary_exact(msks)
+        return fp["masks/raw"][...]
+
+
+def summarize_mask(dspath: str) -> np.ndarray:
+    """Flattened, conflict-eroded mask summary of a dataset file (the exact
+    sequential walk, ``ops.mask_summary.mask_summary_exact``)."""
+    return mask_summary_exact(_read_masks(dspath))
+
+
+def summarize_mask_stencil(dspath: str, device="cuda") -> np.ndarray:
+    """Mask summary of a dataset file by the vectorised stencil
+    approximation (``ops.mask_summary.mask_summary_stencil``) on ``device``:
+    a tested alternative, not a default. Opt in through the injection point,
+
+        UNet2DSummary(mask_summary_func=summarize_mask_stencil).fit(...)
+
+    (``functools.partial(summarize_mask_stencil, device="cpu")`` without a
+    card). Its targets may lack a few pixels of the exact walk's on chains
+    of touching neurons and never hold a pixel more; scoring and golden
+    comparisons need the exact default. Returns (H, W) float64."""
+    return mask_summary_stencil(_read_masks(dspath), device).cpu().numpy() \
+        .astype(np.float64)
 
 
 def _is_keras(model_path) -> bool:
@@ -431,10 +450,11 @@ class UNet2DSummary:
         z-norm -> reflect-pad -> (8x TTA) forward -> threshold.
 
         # Arguments
-            movie: (T, H, W) tensor or numpy array, or a contract-HDF5 path
-                (its ``series/raw`` is read 256 frames at a time and
-                folded by :func:`evaluate_movie_streaming`, K1's fold on
-                the card; the movie is never held whole). A tensor or array
+            movie: (T, H, W) tensor or numpy array, a contract-HDF5 path
+                or an open dataset such as its ``series/raw`` (read 256
+                frames at a time and folded by
+                :func:`evaluate_movie_streaming`, K1's fold on the card;
+                the movie is never held whole). A tensor or array
                 whose frames fit the window is copied to ``self.device``
                 once and summarised by one K1 call; frames larger than the
                 window run :func:`evaluate_movie_tiled` (streaming fold,
@@ -475,6 +495,10 @@ class UNet2DSummary:
             return mask, prob
         if oversized(*movie.shape[1:]):
             mask, prob, _ = evaluate_movie_tiled(model, movie, **kw)
+            return mask, prob
+        if not isinstance(movie, (np.ndarray, torch.Tensor)):
+            # An open dataset, sliced lazily: never held whole.
+            mask, prob, _ = evaluate_movie_streaming(model, movie, **kw)
             return mask, prob
 
         if isinstance(movie, np.ndarray):

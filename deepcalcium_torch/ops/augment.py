@@ -16,6 +16,7 @@ import torch
 
 __all__ = ["AUGMENTATION_NAMES", "INVERTIBLE_2D_AUGMENTATIONS", "D4_TABLE",
            "D4_INVERSE", "GENERATOR_CODES", "tta_expand", "tta_collapse",
+           "tta_expand_np", "tta_collapse_np", "apply_d4", "apply_d4_batch",
            "compose_random_walk"]
 
 
@@ -78,6 +79,43 @@ def tta_collapse(preds: torch.Tensor) -> torch.Tensor:
     inverted = [inv(preds[i])
                 for i, (_, _, inv) in enumerate(INVERTIBLE_2D_AUGMENTATIONS)]
     return torch.stack(inverted).mean(dim=0)
+
+
+# Host-side twins over numpy arrays, same names, order and axes.
+_NP_AUGS = [
+    ("identity", lambda x: x, lambda x: x),
+    ("vflip", lambda x: np.flip(x, 1), lambda x: np.flip(x, 1)),
+    ("hflip", lambda x: np.flip(x, 2), lambda x: np.flip(x, 2)),
+    ("rot90", lambda x: np.rot90(x, 1, (1, 2)), lambda x: np.rot90(x, -1, (1, 2))),
+    ("rot180", lambda x: np.rot90(x, 2, (1, 2)), lambda x: np.rot90(x, -2, (1, 2))),
+    ("rot270", lambda x: np.rot90(x, 3, (1, 2)), lambda x: np.rot90(x, -3, (1, 2))),
+    ("rot90vflip", lambda x: np.flip(np.rot90(x, 1, (1, 2)), 1),
+     lambda x: np.flip(np.rot90(x, 1, (1, 2)), 1)),
+    ("rot90hflip", lambda x: np.flip(np.rot90(x, 1, (1, 2)), 2),
+     lambda x: np.flip(np.rot90(x, 1, (1, 2)), 2)),
+]
+
+
+def tta_expand_np(batch):
+    """Host-side :func:`tta_expand`: (B, H, W) numpy -> (8, B, H, W)."""
+    return np.stack([fwd(batch) for _, fwd, _ in _NP_AUGS])
+
+
+def tta_collapse_np(preds):
+    """Host-side :func:`tta_collapse`: (8, B, H, W) numpy -> (B, H, W)."""
+    inverted = [inv(preds[i]) for i, (_, _, inv) in enumerate(_NP_AUGS)]
+    return np.mean(np.stack(inverted), axis=0)
+
+
+def apply_d4(img2d: torch.Tensor, code) -> torch.Tensor:
+    """Apply D4 element ``code`` to one (H, W) image on its device."""
+    return INVERTIBLE_2D_AUGMENTATIONS[int(code)][1](img2d[None])[0]
+
+
+def apply_d4_batch(batch: torch.Tensor, codes) -> torch.Tensor:
+    """Apply a per-sample D4 element: (B, H, W), (B,) ints -> (B, H, W)."""
+    return torch.stack([apply_d4(img, code)
+                        for img, code in zip(batch, codes)])
 
 
 def compose_random_walk(rng: np.random.Generator, nb_max_augment: int) -> int:

@@ -10,18 +10,26 @@ The root is ``$DEEPCALCIUM_TPU_DIR``, or ``~/.deep-calcium-tpu``; the file
 import json
 import os
 
-__all__ = ["datasets_dir", "checkpoints_dir"]
+__all__ = ["base_dir", "config_path", "get_config", "datasets_dir",
+           "checkpoints_dir"]
 
 
-def _base_dir() -> str:
+def base_dir() -> str:
+    """Root directory for config, datasets and checkpoints."""
     return (os.environ.get("DEEPCALCIUM_TPU_DIR")
             or os.path.join(os.path.expanduser("~"), ".deep-calcium-tpu"))
 
 
-def _config() -> dict:
-    bd = _base_dir()
+def config_path() -> str:
+    return os.path.join(base_dir(), "deep-calcium-tpu.json")
+
+
+def get_config() -> dict:
+    """The config's contents; the file and both directories are created
+    when missing."""
+    bd = base_dir()
     os.makedirs(bd, exist_ok=True)
-    path = os.path.join(bd, "deep-calcium-tpu.json")
+    path = config_path()
     if os.path.exists(path):
         try:
             with open(path) as fp:
@@ -43,9 +51,9 @@ def _config() -> dict:
 
 def datasets_dir() -> str:
     """The shared dataset root directory (created if missing)."""
-    return _config()["datasets_dir"]
+    return get_config()["datasets_dir"]
 
 
 def checkpoints_dir() -> str:
     """The shared checkpoint root directory (created if missing)."""
-    return _config()["checkpoints_dir"]
+    return get_config()["checkpoints_dir"]

@@ -1,7 +1,8 @@
 """Profiling hooks: a ``torch.profiler`` trace around a block, and
 per-phase throughput counters.
 
-Port of ``deepcalcium_tpu.utils.profiling`` (``trace``, ``ThroughputMeter``):
+Port of ``deepcalcium_tpu.utils.profiling`` (``trace``, ``annotate``,
+``ThroughputMeter``):
 ``trace`` is a no-op when no directory is given, so callers can always wrap.
 """
 
@@ -10,7 +11,7 @@ import time
 
 import torch
 
-__all__ = ["trace", "ThroughputMeter"]
+__all__ = ["trace", "annotate", "ThroughputMeter"]
 
 
 @contextlib.contextmanager
@@ -28,6 +29,13 @@ def trace(log_dir: str | None):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named sub-span inside an active profiler trace."""
+    with torch.profiler.record_function(name):
         yield
 
 

@@ -1,17 +1,23 @@
-"""Outlined masks as RGB images, PNG output, and trace plots.
+"""Outlined masks as RGB images, PNG output, trace plots and movie export.
 
-Port of ``mask_outlines``, ``save_png`` and ``plot_traces_spikes`` of
-``deepcalcium_tpu.utils.visualization``: the base image clipped at its 99th
-percentile and scaled to [0, 1], with each mask's 1-px outline (the mask
-minus its 3x3 erosion) drawn over it in its colour; and one subplot per
-calcium trace with its true and predicted spikes. PIL is imported only by
-``save_png`` and matplotlib only by ``plot_traces_spikes``.
+Port of ``deepcalcium_tpu.utils.visualization`` (``mask_outlines``,
+``save_png``, ``plot_traces_spikes``, ``dataset_to_mp4``): the base image
+clipped at its 99th percentile and scaled to [0, 1], with each mask's 1-px
+outline (the mask minus its 3x3 erosion) drawn over it in its colour; and
+one subplot per calcium trace with its true and predicted spikes. PIL is imported only by
+``save_png`` and matplotlib only by ``plot_traces_spikes``;
+``dataset_to_mp4`` burns cyan neuron outlines into a grayscale movie and
+writes it with imageio when that is installed.
 """
+
+import logging
+import os
 
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["mask_outlines", "save_png", "plot_traces_spikes"]
+__all__ = ["mask_outlines", "save_png", "plot_traces_spikes",
+           "dataset_to_mp4"]
 
 _COLORS = {
     "red": (1.0, 0.0, 0.0),
@@ -106,3 +112,51 @@ def plot_traces_spikes(traces, spikes_true=None, spikes_pred=None, title=None,
         plt.close(fig)
     else:
         plt.show()
+
+
+def dataset_to_mp4(s, m, mp4_path):
+    """Export a (T, H, W) movie ``s`` scaled to 0..255, with the outlines of
+    the (N, H, W) masks ``m`` (or None) in cyan.
+
+    Written with imageio's ffmpeg writer when present; else as an animated
+    GIF beside ``mp4_path``; else, without imageio, as about 100 PNG frames
+    under ``<mp4_path>.frames/``.
+    """
+    logger = logging.getLogger(__name__)
+    s = np.asarray(s, np.float32)
+    s = (s - s.min()) / max(s.max() - s.min(), 1e-9) * 255
+
+    # Cast before replicating to RGB: the float32 movie repeated three
+    # times would take four times the memory of the uint8 one.
+    video = np.repeat(s.astype(np.uint8)[..., None], 3, axis=-1)
+    if m is not None:
+        edges = np.zeros(s.shape[1:], bool)
+        for i in range(m.shape[0]):
+            edges |= _outline(m[i])
+        video[:, edges, :] = np.array([102, 255, 255], np.uint8)
+
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        imageio = None
+    if imageio is not None:
+        gif_path = os.path.splitext(mp4_path)[0] + ".gif"
+        for path, kw, log in (
+                (mp4_path, {"fps": 30}, "Saved video %s"),
+                (gif_path, {"duration": 1000 / 30, "loop": 0},
+                 "No mp4 codec available; saved GIF %s instead")):
+            try:
+                imageio.mimwrite(path, video, **kw)
+            except Exception as e:  # a missing codec or plugin: next writer
+                logger.info("imageio could not write %s (%s)", path, e)
+                continue
+            logger.info(log, path)
+            return
+    frames_dir = mp4_path + ".frames"
+    os.makedirs(frames_dir, exist_ok=True)
+    step = max(1, len(video) // 100)
+    for i in range(0, len(video), step):
+        save_png(os.path.join(frames_dir, f"frame_{i:06d}.png"), video[i])
+    logger.warning(
+        "No video writer available; wrote every %dth frame (%d PNGs of %d "
+        "total) to %s", step, -(-len(video) // step), len(video), frames_dir)

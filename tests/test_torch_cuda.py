@@ -255,3 +255,57 @@ def test_glm_models_on_card_match_cpu(cuda_device, arch):
     gpu = fn({k: v.to(cuda_device) for k, v in params.items()},
              x.to(cuda_device)).cpu()
     torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-6)
+
+
+# --- per-frame segmentation and the stencil -----------------------------------
+
+@pytest.mark.parametrize("dtype,shape,slab", [
+    (np.int16, (21, 40, 44), 8),     # ragged T; H, W not multiples of 16
+    (np.uint16, (9, 37, 50), 4),
+    (np.float32, (70, 32, 32), 8),   # more slabs than staging slots
+])
+def test_segment_movie_on_card_matches_cpu(cuda_device, dtype, shape, slab):
+    """The pipelined path on the card (pinned staging, a copy stream, masks
+    one slab behind) against the CPU path at float32 with TF32 off: masks
+    equal wherever the CPU's probability lies 1e-4 or more from the
+    threshold (sums in another order)."""
+    from chip_smoke import straightforward_segment
+    from deepcalcium_torch.models.movie_segmentation import segment_movie
+    from deepcalcium_torch.models.unet2d import from_jax_params, to_jax_params
+
+    rng = np.random.default_rng(11)
+    movie = rng.poisson(100, shape).astype(np.float64)
+    movie[:, 10:20, 10:20] += 300 * (rng.random((shape[0], 1, 1)) > 0.5)
+    movie = (movie * (100 if dtype == np.uint16 else 1)).astype(dtype)
+    net = UNet2DS(nfb=4, generator=torch.Generator().manual_seed(3))
+    net.head_conv.bias.data = torch.tensor([0.05, -0.05])  # off exact 0.5
+    params, state = to_jax_params(net)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = segment_movie(params, state, movie, slab=slab,
+                            compute_dtype=None)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    cpu = segment_movie(params, state, movie, slab=slab, compute_dtype=None,
+                        device="cpu")
+    _, probs = straightforward_segment(
+        from_jax_params(params, state).eval(), movie, torch.device("cpu"), 16)
+    far = np.abs(probs - 0.5) >= 1e-4
+    assert got.shape == movie.shape and got.dtype == np.uint8
+    assert far.mean() > 0.9 and 0 < got.mean() < 1
+    np.testing.assert_array_equal(got[far], cpu[far])
+    np.testing.assert_array_equal(got[far], (probs > 0.5)[far])
+
+
+def test_stencil_on_card_matches_cpu(cuda_device):
+    """Integer arithmetic throughout: bit for bit."""
+    from deepcalcium_torch.ops.mask_summary import (id_map_from_stack,
+                                                    mask_summary_stencil)
+
+    rng = np.random.default_rng(2)
+    msks = (rng.random((40, 97, 131)) < 0.05).astype(np.int8)
+    got = mask_summary_stencil(msks)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), mask_summary_stencil(msks, device="cpu"))
+    for a, b in zip(id_map_from_stack(msks), id_map_from_stack(msks, "cpu")):
+        assert torch.equal(a.cpu(), b)

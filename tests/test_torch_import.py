@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -62,6 +63,30 @@ def test_port_and_chip_smoke_never_import_jax():
     assert proc.stdout.strip() == "clean"
 
 
+@pytest.mark.parametrize("module", [
+    "deepcalcium_torch.cli",
+    "deepcalcium_torch.models.movie_segmentation",
+    "deepcalcium_torch.ops.mask_summary",
+    "deepcalcium_torch.utils.model_downloads",
+    "deepcalcium_torch.data.fixtures",
+])
+def test_module_imports_no_jax_and_no_h5py(module):
+    """Each module alone, in a fresh interpreter: nothing of JAX or of the
+    JAX package, and none of h5py, PIL, requests or matplotlib (the command
+    line must start on a machine without them)."""
+    code = (
+        "import sys, importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu', 'h5py', 'PIL', "
+        "'requests', 'matplotlib'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = _python("-c", code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 def test_package_import_is_light():
     """``import deepcalcium_torch`` loads no submodule and not torch."""
     code = ("import sys, deepcalcium_torch\n"
@@ -75,8 +100,6 @@ def test_chip_smoke_fails_without_a_card():
     """No fallback: on a machine with no CUDA card the smoke run exits
     non-zero and prints no ok line."""
     if torch.cuda.is_available():
-        import pytest
-
         pytest.skip("a CUDA card is present; this pins the behaviour "
                     "without one")
     proc = _python("chip_smoke.py")
