@@ -56,7 +56,15 @@ Phases, one line each, in order:
     ``predict``, ``spikes-train --arch glm`` and ``spikes-predict``. This
     machine has no h5py, so the four private functions the commands get
     their wrappers and movies through are replaced with ones that hand over
-    in-memory arrays through the wrappers' injection points.
+    in-memory arrays through the wrappers' injection points;
+20. the multi-device paths over an NCCL group of one rank on the card:
+    ``movie_summary_sharded`` of the phase-5 movie bit for bit K1's; one
+    UNet2DS and one UNet1D train step at full width with ``mesh=`` against
+    without, from the same weights at drp=0, with both times;
+    ``make_movie_evaluator(mesh=)`` and ``segment_movie(mesh=)`` bit for
+    bit the plain ones; and, where the machine has several cards,
+    ``deepcalcium_torch/parallel/dryrun.py`` with one rank a card, rank 0
+    held against one process.
 Then one JSON line with each kernel's record and the paths' numbers, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises, so the exit code is non-zero and no
@@ -1880,6 +1888,214 @@ def phase_cli(dev, main, spikes_ctx, card):
                       "submissions": subs}
 
 
+PAR_SEG_FRAMES = 256  # frames of the meshed segment_movie call
+
+
+def _one_step(kind, dev, seed, mesh):
+    """One train step at the published width from weights drawn from
+    ``seed``, at drp=0: UNet2DS at batch 20 @ 128^2 with bce and the neuron
+    metrics, or UNet1D at batch 20 x 4096 with wbce(pos=2) and the spike
+    metrics; bf16. Returns (step, x, y, net)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.unet1d import UNet1D
+    from deepcalcium_torch.models.unet2d import UNet2DS
+    from deepcalcium_torch.ops import losses as L
+    from deepcalcium_torch.train import trainer
+
+    rng = np.random.default_rng(seed + 20)
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "2d":
+        net = UNet2DS(nfb=NFB, compute_dtype=torch.bfloat16, generator=gen,
+                      drp=0.0).to(dev)
+        shape = (TRAIN_BATCH, TRAIN_WINDOW, TRAIN_WINDOW)
+        loss_fn, metric_fns = L.binary_crossentropy, None
+    else:
+        net = UNet1D(nfb=NFB, margin=SPIKE_MARGIN,
+                     compute_dtype=torch.bfloat16, generator=gen,
+                     drp=0.0).to(dev)
+        shape = (SPIKE_BATCH, SPIKE_WINDOW)
+        loss_fn = functools.partial(L.weighted_binary_crossentropy,
+                                    weightpos=2.0)
+        metric_fns = dict(L.SPIKE_METRICS)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.random(shape) < 0.1).astype(np.float32)).to(dev)
+    step = trainer.make_train_step(net, loss_fn, trainer.make_optimizer(net),
+                                   metric_fns, mesh=mesh)
+    return step, x, y, net
+
+
+def phase_parallel(dev, main, card, seed):
+    """The multi-device paths over an NCCL group on the card: one rank here
+    (and one rank a card through ``parallel/dryrun.py`` where there are
+    several). Every meshed path is held against its plain one."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepcalcium_torch.models.movie_segmentation import segment_movie
+    from deepcalcium_torch.models.unet2d import from_jax_params
+    from deepcalcium_torch.ops.summary import (movie_fold_cuda,
+                                               movie_summary_cuda,
+                                               movie_summary_sharded)
+    from deepcalcium_torch.parallel import dryrun
+    from deepcalcium_torch.parallel.distributed import (_free_port, initialize,
+                                                        pod_mesh, shutdown)
+    from deepcalcium_torch.train.evaluate import make_movie_evaluator
+
+    t0 = time.perf_counter()
+    initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    mesh = pod_mesh()
+    if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+        raise AssertionError(f"the group on the card is {dist.get_backend()} "
+                             f"on {mesh.device}, not NCCL")
+    mesh.barrier()  # the first collective builds NCCL's communicator
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    parts = {"nccl_setup": setup_s}
+
+    def lap(name, since):
+        torch.cuda.synchronize()
+        parts[name] = round(time.perf_counter() - since, 2)
+        return time.perf_counter()
+
+    movie, params, state = main["movie"], main["params"], main["state"]
+    host = np.ascontiguousarray(main["host"][:PAR_SEG_FRAMES])
+    model = from_jax_params(params, state, torch.bfloat16, dev).eval().fold()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # The meshed paths first, with K1's counts read right after them.
+        t1 = time.perf_counter()
+        movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+        mean, mx = movie_summary_sharded(movie, mesh)
+        summary_launches = movie_fold_cuda.launches
+        mask, prob, emean = make_movie_evaluator(
+            model, movie.shape, window=(WINDOW, WINDOW), mesh=mesh)(movie)
+        masks = segment_movie(params, state, host, slab=SEG_SLAB, mesh=mesh)
+        launches = movie_fold_cuda.launches
+        t1 = lap("meshed_paths", t1)
+        if movie_summary_cuda.launches or summary_launches != math.ceil(
+                FRAMES / FOLD_CHUNK) or launches != 2 * summary_launches:
+            raise AssertionError(
+                f"the sharded paths launched K1's fold {launches} times and "
+                f"its whole-movie entry {movie_summary_cuda.launches} times")
+        # Their plain versions.
+        k1_mean, k1_max = movie_summary_cuda(movie)
+        if not (torch.equal(mean, k1_mean) and torch.equal(mx, k1_max)
+                and torch.equal(emean, k1_mean)):
+            raise AssertionError("the sharded summary differs from K1's")
+        pmask, pprob, _ = make_movie_evaluator(
+            model, movie.shape, window=(WINDOW, WINDOW))(movie)
+        if not (torch.equal(mask, pmask) and torch.equal(prob, pprob)):
+            raise AssertionError("the meshed movie evaluator differs from "
+                                 "the plain one")
+        want = segment_movie(params, state, host, slab=SEG_SLAB)
+        if masks.shape != host.shape or not np.array_equal(masks, want):
+            raise AssertionError("the meshed segment_movie differs from the "
+                                 "plain one")
+        t1 = lap("plain_paths", t1)
+
+        # One train step of each net with the mesh against without, from
+        # the same weights. Tolerance: loss rtol 1e-5; gradients and BN
+        # buffers within 1e-3 of the tensor's largest entry (bf16 convs; the
+        # global statistics and the gradient combine may round elsewhere).
+        steps = {}
+        for kind in ("2d", "1d"):
+            plain_step, x, y, plain_net = _one_step(kind, dev, seed, None)
+            mesh_step, _, _, mesh_net = _one_step(kind, dev, seed, mesh)
+            t1 = lap(f"{kind}_nets", t1)
+            pm, mm = plain_step(x, y), mesh_step(x, y)
+            loss, mloss = float(pm["loss"]), float(mm["loss"])
+            if not (math.isfinite(loss) and abs(mloss - loss) <= 1e-5 * abs(loss)):
+                raise AssertionError(f"{kind}: meshed loss {mloss}, plain {loss}")
+            worst, bitwise = 0.0, mloss == loss
+            named = (list(zip(plain_net.named_parameters(), mesh_net.parameters()))
+                     + list(zip(plain_net.named_buffers(), mesh_net.buffers())))
+            for (name, a), b in named:
+                pairs = [(a, b)] if a.grad is None else [(a, b), (a.grad, b.grad)]
+                for u, v in pairs:
+                    u, v = u.detach(), v.detach()
+                    err = float((u - v).abs().max() / u.abs().max().clamp_min(1e-30))
+                    worst = max(worst, err)
+                    bitwise = bitwise and torch.equal(u, v)
+                    if not err <= 1e-3:
+                        raise AssertionError(f"{kind} {name}: meshed step off "
+                                             f"by {err:.3g} of the largest entry")
+            steps[kind] = {"loss": loss, "bitwise": bool(bitwise),
+                           "worst_relative": worst}
+            t1 = lap(f"{kind}_compare", t1)
+            # Time, plain, mesh, mesh, plain: what the collectives of one
+            # rank cost a step.
+            torch.backends.cudnn.deterministic = False
+            ms = [_timed_ms(lambda: s(x, y), 5)
+                  for s in (plain_step, mesh_step, mesh_step, plain_step)]
+            torch.backends.cudnn.deterministic = True
+            steps[kind].update(plain_ms=[ms[0], ms[3]], mesh_ms=[ms[1], ms[2]])
+            t1 = lap(f"{kind}_timing", t1)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # Several cards: one rank a card through the dry run, rank 0 against
+    # one process on this card (float32, TF32 off in the ranks and here).
+    cards = torch.cuda.device_count()
+    multi = None
+    if cards > 1:
+        out = REPO / "build" / "chip_smoke_dryrun"
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        files, runs = dryrun.spawn(cards, "cuda", str(out), timeout=300)
+        if any(rc != 0 for rc, _, _ in runs):
+            raise AssertionError("a rank of the multi-card dry run failed:\n"
+                                 + "\n".join(se[-2000:] for _, _, se in runs))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            one = dryrun.dryrun_multichip(None, device=dev)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+        with np.load(files[0]) as z:
+            rank0 = {k: z[k] for k in z.files}
+        multi = {}
+        for k, want in one.items():
+            got = rank0[k].astype(np.float64)
+            tol = 1e-4 * max(float(np.abs(want).max()), 1e-3)
+            err = float(np.abs(got - want).max())
+            if k.startswith(("summary.", "evaluator.mean")) and "f32" not in k:
+                tol = 0.0
+            if k in ("segment", "evaluator.mask"):
+                err, tol = float((got != want).mean()), 0.01
+            if err > tol:
+                raise AssertionError(f"multi-card dry run: {k} off by {err} "
+                                     f"(tolerance {tol})")
+            multi[k.split(".")[0]] = max(multi.get(k.split(".")[0], 0.0), err)
+        shutil.rmtree(out, ignore_errors=True)
+    shutdown()
+    seconds = time.perf_counter() - t0
+    print(f"parallel: NCCL group of 1 rank on {mesh.device} formed in "
+          f"{setup_s:.2f} s; movie_summary_sharded of {tuple(movie.shape)} "
+          f"bitwise K1 ({summary_launches} fold launches); "
+          f"make_movie_evaluator(mesh=) and segment_movie(mesh=) on "
+          f"{PAR_SEG_FRAMES} frames bitwise the plain ones; "
+          + "; ".join(
+              f"{k} step with mesh against without: loss {v['loss']:.6f}, "
+              f"{'bitwise equal' if v['bitwise'] else 'not bitwise'}, worst "
+              f"{v['worst_relative']:.3g} of the largest entry; "
+              f"{min(v['plain_ms']):.2f} ms plain, {min(v['mesh_ms']):.2f} "
+              f"ms meshed" for k, v in steps.items())
+          + (f"; multi-card dry run on {cards} cards: rank 0 within "
+             f"tolerance of one process" if multi is not None else
+             "; one card: the multi-card dry run was not possible and did "
+             "not run") + f"; {seconds:.1f} s; {card}", flush=True)
+    return launches, {"seconds": seconds, "nccl_setup_s": setup_s,
+                      "part_seconds": parts,
+                      "fold_launches": launches, "steps": steps,
+                      "cards": cards, "multi_card": multi}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1917,6 +2133,8 @@ def main(argv=None):
     segment = timed("segment", phase_segment, dev, main_ctx, card)
     stencil = timed("stencil", phase_stencil, dev, args.seed, card)
     cli_launches, cli = timed("cli", phase_cli, dev, main_ctx, fit1d_ctx, card)
+    par_launches, parallel = timed("parallel", phase_parallel, dev, main_ctx,
+                                   card, args.seed)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "deepcalcium_tpu"))
     if bad:
@@ -1930,7 +2148,8 @@ def main(argv=None):
                "fit1d": fit1d["k1_launches"],
                "predict1d": predict1d["k1_launches"],
                "glm": glm["k1_launches"],
-               "segment": segment["k1_launches"], "cli": cli_launches}
+               "segment": segment["k1_launches"], "cli": cli_launches,
+               "parallel": par_launches}
     print(json.dumps({"kernels": [{
         "name": "K1 movie_summary_cuda (+ fold entry movie_fold_cuda)",
         "route": "cuda",
@@ -1948,7 +2167,7 @@ def main(argv=None):
         "golden1d_max_abs_err": golden1d_err,
         "train_golden1d_max_abs_err": golden1d_errs, "fit1d": fit1d,
         "predict1d": predict1d, "glm": glm, "segment": segment,
-        "stencil": stencil, "cli": cli, "card": card,
+        "stencil": stencil, "cli": cli, "parallel": parallel, "card": card,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

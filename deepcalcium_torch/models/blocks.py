@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepcalcium_torch.parallel.mesh import psum
+
 __all__ = ["BN_EPS", "Conv2d", "Conv1d", "ConvTranspose2x2", "BatchNorm",
            "conv2d", "conv1d", "tconv2x2", "maxpool2", "pool2",
            "maxpool1d_same", "upsample1d", "batch_norm", "batch_stats",
@@ -122,14 +124,27 @@ def batch_norm(x, gamma, beta, mean, var):
             + _per_channel(beta.to(dt), x))
 
 
-def batch_stats(x):
+def batch_stats(x, mesh=None):
     """Batch mean and biased variance per channel (dim 1) over every other
     dim, in float32 whatever ``x.dtype`` is
     (``blocks.batch_norm(train=True)``). Differentiable: the train-mode
-    gradient flows through both."""
+    gradient flows through both.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) ``x`` is this rank's shard and
+    the statistics are those of the global batch, as GSPMD computes them in
+    the JAX package. The ranks' shards are equally large, so the global
+    mean is the mean of the ranks' means, and the global variance the mean
+    of the ranks' ``var + (mean - global mean)**2`` (Chan's combination;
+    ``E[x**2] - mean**2`` would cancel in float32). Both all-reduces are
+    differentiable, so the gradient is the global batch's too. On a mesh of
+    one rank the result has the bits of the plain one."""
     dims = (0,) + tuple(range(2, x.dim()))
     var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
-    return mean, var
+    if mesh is None:
+        return mean, var
+    gmean = psum(mean, mesh) / mesh.size
+    gvar = psum(var + (mean - gmean) ** 2, mesh) / mesh.size
+    return gmean, gvar
 
 
 def dropout_with_mask(x, rate: float, mask):
@@ -210,14 +225,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, mesh=None):
         """Eval mode normalises by the running statistics. Train mode
-        normalises by the batch statistics and updates the running ones in
-        place."""
+        normalises by the batch statistics (the global batch's under a
+        ``mesh``) and updates the running ones in place."""
         if not train:
             return batch_norm(x, self.weight, self.bias, self.running_mean,
                               self.running_var)
-        mean, var = batch_stats(x)
+        mean, var = batch_stats(x, mesh)
         self.update_running(mean, var)
         return batch_norm(x, self.weight, self.bias, mean, var)
 

@@ -16,7 +16,13 @@ completed. The weights go to the card once a call.
 Where the JAX package pads the last slab with zero frames to its compiled
 shape, the short slab runs as it is here: eval-mode BN makes frames
 independent. Its cache of compiled slabs has no counterpart (PyTorch runs
-eagerly). Sharding a slab over several cards (``mesh``) is not ported yet.
+eagerly).
+
+With a ``mesh`` (``parallel.mesh.Mesh``) every rank is handed the same movie
+and stages, copies and runs only its frames of each slab; the uint8 masks
+are all-gathered, so every rank returns the whole stack. The consumer
+thread alone calls the collectives, one a slab, in the same order on every
+rank.
 """
 
 import queue
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from deepcalcium_torch.models.unet2d import from_jax_params
+from deepcalcium_torch.parallel.mesh import all_gather, check_mesh
 from deepcalcium_torch.train.evaluate import _reflect_index
 from deepcalcium_torch.train.sampler import Prefetcher
 from deepcalcium_torch.utils.device import require_cuda
@@ -65,10 +72,13 @@ class _Slot:
     """Staging buffers of one slab in flight. On the CPU the frames are
     staged where the net reads them and the events are absent."""
 
-    def __init__(self, shape, dtype, device):
+    def __init__(self, shape, dtype, device, ranks=1):
+        """``shape``: this rank's frames of a slab; the masks that come
+        back are those of all ``ranks``."""
         cuda = device.type == "cuda"
         self.host_in = torch.empty(shape, dtype=dtype, pin_memory=cuda)
-        self.host_out = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+        self.host_out = torch.empty((shape[0] * ranks,) + tuple(shape[1:]),
+                                    dtype=torch.uint8, pin_memory=cuda)
         self.dev_in = (torch.empty(shape, dtype=dtype, device=device)
                        if cuda else self.host_in)
         self.copied = torch.cuda.Event() if cuda else None
@@ -104,7 +114,11 @@ def segment_movie(params, state, movie, slab: int = 64, mesh=None,
             time); int16, uint16, float32 or any dtype numpy casts to
             float32.
         slab: frames per device batch.
-        mesh: not ported yet; anything but None raises.
+        mesh: each slab's frames are split over the mesh's ranks, so
+            ``slab`` must divide by ``mesh.size`` (the JAX package rounds
+            it up to a multiple instead); every rank passes the
+            same movie and gets every frame's mask. ``device`` must be
+            ``mesh.device``'s kind.
         threshold: a pixel is 1 where its probability is strictly above.
         compute_dtype: dtype of the convs; None computes in float32.
         apply_fn: a forward to run in place of the net built from
@@ -113,13 +127,18 @@ def segment_movie(params, state, movie, slab: int = 64, mesh=None,
         device: where the net runs; "cuda" (the default) raises without a
             card. Pass "cpu" to run on the CPU on purpose.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device segmentation is not ported yet (ROADMAP Queue 1 "
-            "item 11: multi-GPU)")
+    ranks, rank = 1, 0
+    if check_mesh(mesh) is not None:
+        ranks, rank = mesh.size, mesh.rank
     if slab < 1:
         raise ValueError(f"slab={slab} must be >= 1")
+    if slab % ranks:
+        raise ValueError(f"slab={slab} must be divisible by the mesh size "
+                         f"{ranks}")
     device = torch.device(device)
+    if mesh is not None and device.type != mesh.device.type:
+        raise ValueError(f"device {device} is not of the mesh's kind "
+                         f"({mesh.device})")
     cuda = device.type == "cuda"
     if cuda:
         current = require_cuda()
@@ -132,28 +151,38 @@ def segment_movie(params, state, movie, slab: int = 64, mesh=None,
     dtype = _staging_dtype(movie.dtype)
     free: queue.Queue = queue.Queue()
     for _ in range(min(_SLOTS, -(-t // slab))):
-        free.put(_Slot((slab, h, w), dtype, device))
+        free.put(_Slot((slab // ranks, h, w), dtype, device, ranks))
     copy_stream = torch.cuda.Stream(device) if cuda else None
 
     def staged():
-        """Runs on the prefetch thread: read a slab into a free slot and
-        start its copy to the card."""
+        """Runs on the prefetch thread: read this rank's frames of a slab
+        into a free slot and start their copy to the card. The ``n`` frames
+        of a slab are split ``per`` to a rank (the short last slab rounded
+        up to a multiple of the ranks); a rank whose part reaches past the
+        movie's end fills it up with zero frames, which are cut after the
+        gather."""
         for t0 in range(0, t, slab):
             slot = free.get()
             if slot is None:  # the consumer gave up
                 return
             n = min(slab, t - t0)
-            slot.host_in[:n].numpy()[...] = movie[t0:t0 + n]
+            per = -(-n // ranks)
+            lo = min(t0 + rank * per, t0 + n)
+            mine = min(per, t0 + n - lo)
+            staging = slot.host_in[:per].numpy()
+            staging[:mine] = movie[lo:lo + mine]
+            staging[mine:] = 0
             if cuda:
                 with torch.cuda.stream(copy_stream):
-                    slot.dev_in[:n].copy_(slot.host_in[:n], non_blocking=True)
+                    slot.dev_in[:per].copy_(slot.host_in[:per],
+                                            non_blocking=True)
                     slot.copied.record()
-            yield t0, n, slot
+            yield t0, n, per, slot
 
     out = np.empty((t, h, w), np.uint8)
 
     def drain(item):
-        t0, n, slot = item
+        t0, n, _, slot = item
         if cuda:
             slot.done.synchronize()
         out[t0:t0 + n] = slot.host_out[:n].numpy()
@@ -163,15 +192,17 @@ def segment_movie(params, state, movie, slab: int = 64, mesh=None,
     prefetch = Prefetcher(staged(), depth=_SLOTS)
     try:
         with torch.inference_mode():
-            for t0, n, slot in prefetch:
+            for t0, n, per, slot in prefetch:
                 if cuda:
                     torch.cuda.current_stream(device).wait_event(slot.copied)
-                masks = _segment_slab(forward, slot.dev_in[:n], hp, wp,
+                masks = _segment_slab(forward, slot.dev_in[:per], hp, wp,
                                       threshold)
-                slot.host_out[:n].copy_(masks, non_blocking=True)
+                if mesh is not None:
+                    masks = all_gather(masks, mesh)
+                slot.host_out[:n].copy_(masks[:n], non_blocking=True)
                 if cuda:
                     slot.done.record(torch.cuda.current_stream(device))
-                pending.append((t0, n, slot))
+                pending.append((t0, n, per, slot))
                 if len(pending) >= 2:
                     drain(pending.pop(0))
             for item in pending:

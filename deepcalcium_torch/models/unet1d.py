@@ -110,18 +110,20 @@ class UNet1D(nn.Module):
     def torch_tensors(self, tree):
         return torch_tensors(self, tree)
 
-    def _cbr(self, name, h, train):
+    def _cbr(self, name, h, train, mesh=None):
         y = getattr(self, f"{name}_conv")(h, self.compute_dtype)
         bn = getattr(self, f"{name}_bn")
-        return torch.relu(bn(y, train))
+        return torch.relu(bn(y, train, mesh))
 
-    def forward(self, x, train: bool = False, generator=None):
+    def forward(self, x, train: bool = False, generator=None, mesh=None):
         """(B, T) -> (B, T) float32 probabilities; T % 16 == 0.
 
         ``train=True`` normalises by batch statistics, updates the BN
         running buffers in place, and applies dropout with keep-masks drawn
         from ``generator`` (a ``torch.Generator`` on the input's device).
-        Skips are taken after dropout, as in the JAX package."""
+        Skips are taken after dropout, as in the JAX package. With a
+        ``mesh``, ``x`` is this rank's shard of the batch and the training
+        statistics are the global batch's (``blocks.batch_stats``)."""
         if train and self.drp and generator is None:
             raise ValueError("the training forward needs a generator for "
                              "dropout (or drp=0)")
@@ -129,18 +131,18 @@ class UNet1D(nn.Module):
         h = x[:, None].to(self.compute_dtype or x.dtype)
         skips = []
         for lvl, rate in enumerate((0.0, d, 2 * d, 2 * d)):
-            h = self._cbr(f"enc{lvl}b", self._cbr(f"enc{lvl}a", h, train),
-                          train)
+            h = self._cbr(f"enc{lvl}b",
+                          self._cbr(f"enc{lvl}a", h, train, mesh), train, mesh)
             h = B.dropout(h, rate, train, generator)
             skips.append(h)
             h = B.pool2(h)
-        h = self._cbr("midb", self._cbr("mida", h, train), train)
+        h = self._cbr("midb", self._cbr("mida", h, train, mesh), train, mesh)
         for lvl in (3, 2, 1, 0):
             h = B.dropout(B.upsample1d(h), d if lvl == 0 else 2 * d, train,
                           generator)
             h = torch.cat([h, skips[lvl]], dim=1)
-            h = self._cbr(f"dec{lvl}b", self._cbr(f"dec{lvl}a", h, train),
-                          train)
+            h = self._cbr(f"dec{lvl}b",
+                          self._cbr(f"dec{lvl}a", h, train, mesh), train, mesh)
         logits = self.head_conv(h, self.compute_dtype).float()
         logits = B.maxpool1d_same(logits, self.margin + 1)
         return torch.softmax(logits, dim=1)[:, -1]

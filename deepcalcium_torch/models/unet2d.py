@@ -128,12 +128,12 @@ class UNet2DS(nn.Module):
     def torch_tensors(self, tree):
         return torch_tensors(self, tree)
 
-    def _cbr_train(self, conv, bn, h):
+    def _cbr_train(self, conv, bn, h, mesh=None):
         y = conv(h, self.compute_dtype)
-        mean, var = B.batch_stats(y)
+        mean, var = B.batch_stats(y, mesh)
         return torch.relu(B.batch_norm(y, bn.weight, bn.bias, mean, var)), mean, var
 
-    def _cbr(self, name, h, train):
+    def _cbr(self, name, h, train, mesh=None):
         conv = getattr(self, f"{name}_conv")
         if self.folded:
             return torch.relu(conv(h, self.compute_dtype))
@@ -141,30 +141,32 @@ class UNet2DS(nn.Module):
         if not train:
             return torch.relu(bn(conv(h, self.compute_dtype)))
         if self.remat:
-            y, mean, var = checkpoint(self._cbr_train, conv, bn, h,
+            y, mean, var = checkpoint(self._cbr_train, conv, bn, h, mesh,
                                       use_reentrant=False)
         else:
-            y, mean, var = self._cbr_train(conv, bn, h)
+            y, mean, var = self._cbr_train(conv, bn, h, mesh)
         # Outside the checkpointed block, so the recompute in the backward
         # pass does not fold the batch statistics in a second time.
         bn.update_running(mean.detach(), var.detach())
         return y
 
-    def _up(self, name, h, train):
+    def _up(self, name, h, train, mesh=None):
         if self.up_mode == "upsampling":
             return h.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
         y = getattr(self, f"{name}_tconv")(h, self.compute_dtype)
         if not self.folded:
-            y = getattr(self, f"{name}_bn")(y, train)
+            y = getattr(self, f"{name}_bn")(y, train, mesh)
         return torch.relu(y)
 
-    def forward(self, x, train: bool = False, generator=None):
+    def forward(self, x, train: bool = False, generator=None, mesh=None):
         """(B, H, W) -> (B, H, W) float32 probabilities; H, W % 16 == 0.
 
         ``train=True`` normalises by batch statistics, updates the BN
         running buffers in place, and applies dropout with keep-masks drawn
         from ``generator`` (a ``torch.Generator`` on the input's device).
-        Skips are taken after dropout, as in the JAX package."""
+        Skips are taken after dropout, as in the JAX package. With a
+        ``mesh``, ``x`` is this rank's shard of the batch and the training
+        statistics are the global batch's (``blocks.batch_stats``)."""
         if train and self.folded:
             raise ValueError("a folded model has no BN to train")
         if train and self.drp and generator is None:
@@ -174,19 +176,19 @@ class UNet2DS(nn.Module):
         h = x[:, None].to(self.compute_dtype or x.dtype)
         skips = []
         for lvl, rate in enumerate((0.0, d, 2 * d, 2 * d)):
-            h = self._cbr(f"enc{lvl}b", self._cbr(f"enc{lvl}a", h, train),
-                          train)
+            h = self._cbr(f"enc{lvl}b",
+                          self._cbr(f"enc{lvl}a", h, train, mesh), train, mesh)
             h = B.dropout(h, rate, train, generator)
             skips.append(h)
             h = B.maxpool2(h)
-        h = self._cbr("midb", self._cbr("mida", h, train), train)
+        h = self._cbr("midb", self._cbr("mida", h, train, mesh), train, mesh)
         for lvl in (3, 2, 1, 0):
-            h = B.dropout(self._up(f"up{lvl}", h, train),
+            h = B.dropout(self._up(f"up{lvl}", h, train, mesh),
                           d if lvl == 0 else 2 * d, train, generator)
             # Channel order [up, skip], as the Keras builder concatenates.
             h = torch.cat([h, skips[lvl]], dim=1)
-            h = self._cbr(f"dec{lvl}b", self._cbr(f"dec{lvl}a", h, train),
-                          train)
+            h = self._cbr(f"dec{lvl}b",
+                          self._cbr(f"dec{lvl}a", h, train, mesh), train, mesh)
         head = self.head_conv
         if self.folded:
             # softmax([a, b])[1] == sigmoid(b - a), in float32.

@@ -10,8 +10,12 @@ cropped back). Weights come from a ``.ckpt`` of either package or a Keras
 
 The default accessors read the contract with ``h5py``, imported inside each
 function: a machine without ``h5py`` trains and predicts from traces passed
-through the injection points. Multi-GPU (``mesh``) is a later part of the
-port (ROADMAP, Queue 1 item 11).
+through the injection points.
+
+``fit`` and ``predict`` take ``mesh`` (a ``parallel.mesh.Mesh``): every rank
+calls them with the same arguments and gets the same result; rank 0 alone
+writes checkpoints, the CSV and plots, and a barrier stands before any rank
+reads the best checkpoint back.
 """
 
 import functools
@@ -27,6 +31,7 @@ import torch
 from deepcalcium_torch.models.unet1d import (UNet1D, from_jax_params,
                                              load_jax_params_, to_jax_params)
 from deepcalcium_torch.ops import losses as L
+from deepcalcium_torch.parallel.mesh import agree, check_mesh
 from deepcalcium_torch.train import trainer as T
 from deepcalcium_torch.train.callbacks import CSVMetricsLogger, plot_metrics_grid
 from deepcalcium_torch.train.checkpoints import read_checkpoint, save_checkpoint
@@ -160,8 +165,16 @@ class UNet1DSegmentation:
 
         ``steps_per_dispatch``, ``prng_impl`` and ``preset`` select TPU
         dispatch and PRNG levers of the JAX package; they are checked as
-        there and logged, and change nothing here. ``mesh`` (multi-device
-        training) is not ported yet.
+        there and logged, and change nothing here.
+
+        ``mesh``: data-parallel training over the mesh's ranks
+        (``train.trainer.make_train_step``): every rank draws the same
+        batches and trains on its rows, so ``batch`` must divide by
+        ``mesh.size``; validation batches are split over the ranks. Rank 0
+        alone writes to ``cpdir``, which every rank must see to read the
+        best checkpoint back. Dropout masks are drawn from a stream seeded
+        with ``seed + 2 + mesh.rank``: at ``drp > 0`` the run is not the
+        one-process run.
         """
         logger = logging.getLogger(__name__)
         if len(shape) != 1:
@@ -188,10 +201,9 @@ class UNet1DSegmentation:
         kdisp = None if preset == "perf" else int(steps_per_dispatch)
         if kdisp is not None and kdisp < 1:
             raise ValueError(f"steps_per_dispatch={kdisp} must be >= 1")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP Queue 1 "
-                "item 11: multi-GPU)")
+        if check_mesh(mesh) is not None and batch % mesh.size:
+            raise ValueError(f"batch={batch} must divide by the mesh size "
+                             f"{mesh.size} (multi-device training)")
         if kdisp != 1 or prng_impl != "threefry2x32" or preset is not None:
             logger.info(
                 "steps_per_dispatch=%s, prng_impl=%r, preset=%r: TPU "
@@ -214,7 +226,8 @@ class UNet1DSegmentation:
             idxs_trn, idxs_val = idxs[:n_trn], idxs[n_trn:]
             mt, mv, bmp = self._fit_single(
                 traces, spikes, idxs_trn, idxs_val, shape, error_margin,
-                batch, nb_epochs, learning_rate, seed, kdisp, weight_decay)
+                batch, nb_epochs, learning_rate, seed, kdisp, weight_decay,
+                mesh)
             for k in sorted(mt.keys()):
                 logger.info("%-20s trn=%-9.4f val=%-9.4f", k, mt[k], mv[k])
             logger.info("Best model path: %s", bmp)
@@ -231,7 +244,7 @@ class UNet1DSegmentation:
             mt, mv, _ = self._fit_single(
                 traces, spikes, idxs_trn, folds[val_idx], shape,
                 error_margin, batch, nb_epochs, learning_rate,
-                seed + val_idx, kdisp, weight_decay)
+                seed + val_idx, kdisp, weight_decay, mesh)
             metrics_trn.append(mt)
             metrics_val.append(mv)
         agg = {}
@@ -261,7 +274,7 @@ class UNet1DSegmentation:
 
     def _fit_single(self, traces, spikes, idxs_trn, idxs_val, shape, margin,
                     batch, nb_epochs, learning_rate, seed, kdisp=1,
-                    weight_decay=0.0):
+                    weight_decay=0.0, mesh=None):
         loss_fn = functools.partial(L.weighted_binary_crossentropy,
                                     weightpos=2.0)
         metric_fns = dict(L.SPIKE_METRICS)
@@ -278,19 +291,26 @@ class UNet1DSegmentation:
         net = self._new_net(seed, margin)
         optimizer = T.make_optimizer(net, learning_rate,
                                      weight_decay=weight_decay)
-        step = T.make_train_step(net, loss_fn, optimizer, metric_fns)
-        eval_fwd = T.make_eval_forward(net)
+        step = T.make_train_step(net, loss_fn, optimizer, metric_fns, mesh)
+        fwd = T.make_eval_forward(net, mesh)
+        # Validation batches are split over the mesh's ranks and gathered.
+        eval_fwd = lambda x: _run_batched(fwd, x, mesh=mesh)
 
         gen = self._batch_gen(tr_trn, sp_trn, shape, batch, margin, seed)
-        prefetch = Prefetcher(gen, put_fn=make_put_fn(self.device))
+        prefetch = Prefetcher(gen, put_fn=make_put_fn(self.device, mesh))
         # Fixed validation batch: two windows from every validation trace.
         x_val, y_val = next(self._batch_gen(
             tr_val, sp_val, shape, len(tr_val) * 2, margin, seed + 1))
 
         tic = int(time.time())
-        csvlog = CSVMetricsLogger(os.path.join(self.cpdir, f"{tic}_metrics.csv"))
+        writes = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            tic = agree(mesh, tic)  # one name for the files on every rank
+        csvlog = (CSVMetricsLogger(os.path.join(self.cpdir, f"{tic}_metrics.csv"))
+                  if writes else None)
         # Dropout keep-masks are drawn on the device from their own stream.
-        dropout_gen = torch.Generator(device=self.device).manual_seed(seed + 2)
+        dropout_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 2 + (mesh.rank if mesh is not None else 0))
         nb_plot = min(8, x_val.shape[0])
         try:
             best_path = self._epoch_loop(
@@ -302,6 +322,8 @@ class UNet1DSegmentation:
 
         # Reload the best checkpoint and evaluate train (steps_trn batches
         # from a fresh generator) and validation again.
+        if mesh is not None:
+            mesh.barrier()  # rank 0 has written what every rank now reads
         ckpt = read_checkpoint(best_path)
         load_jax_params_(net, ckpt["params"], ckpt["state"])
         gen_eval = self._batch_gen(tr_trn, sp_trn, shape, batch, margin,
@@ -328,6 +350,7 @@ class UNet1DSegmentation:
         xv = torch.from_numpy(x_val).to(self.device)
         yv = torch.from_numpy(y_val).to(self.device)
         best_f2, best_path = -1.0, None
+        writes = csvlog is not None
         for epoch in range(nb_epochs):
             t0 = time.time()
             # Metrics stay on the device; one sync per epoch, keys in sorted
@@ -348,19 +371,21 @@ class UNet1DSegmentation:
                 k: float(np.mean(trn_h[:, i])) for i, k in enumerate(keys)}
             agg.update({f"val_{k}": float(v) for k, v in
                         zip(val, fetched[trn.numel():])})
-            csvlog.append(epoch, agg)
-            plot_metrics_grid(csvlog.history,
-                              os.path.join(self.cpdir, f"{tic}_metrics.png"))
+            if writes:
+                csvlog.append(epoch, agg)
+                plot_metrics_grid(csvlog.history,
+                                  os.path.join(self.cpdir, f"{tic}_metrics.png"))
             # Sample predictions on fixed validation windows.
             try:
                 from deepcalcium_torch.utils.visualization import plot_traces_spikes
 
-                plot_traces_spikes(
-                    x_val[:nb_plot], spikes_true=y_val[:nb_plot],
-                    spikes_pred=probs[:nb_plot].cpu().numpy(),
-                    title=f"Epoch {epoch} val_F2={agg['val_F2']:.3f}",
-                    save_path=os.path.join(
-                        self.cpdir, f"{tic}_samples_{epoch:03d}_val.png"))
+                if writes:
+                    plot_traces_spikes(
+                        x_val[:nb_plot], spikes_true=y_val[:nb_plot],
+                        spikes_pred=probs[:nb_plot].cpu().numpy(),
+                        title=f"Epoch {epoch} val_F2={agg['val_F2']:.3f}",
+                        save_path=os.path.join(
+                            self.cpdir, f"{tic}_samples_{epoch:03d}_val.png"))
             except Exception as e:  # a plot must never end training
                 logger.warning("sample plot failed: %s", e)
             logger.info("epoch %d: loss=%.4f F2=%.4f val_F2=%.4f (%.3fs)",
@@ -376,10 +401,11 @@ class UNet1DSegmentation:
                 best_f2 = agg["val_F2"]
                 best_path = os.path.join(
                     self.cpdir, f"{tic}_model_val_F2_{best_f2:.3f}_{epoch:03d}.ckpt")
-                params, state = to_jax_params(net)
-                save_checkpoint(best_path, params, state,
-                                T.optax_state(net, optimizer),
-                                meta={"epoch": epoch, "val_F2": best_f2})
+                if writes:
+                    params, state = to_jax_params(net)
+                    save_checkpoint(best_path, params, state,
+                                    T.optax_state(net, optimizer),
+                                    meta={"epoch": epoch, "val_F2": best_f2})
         return best_path
 
     def _batch_gen(self, traces, spikes, shape, batch_size, margin, seed):
@@ -418,12 +444,10 @@ class UNet1DSegmentation:
         ``model_path``: a ``.ckpt`` of either package or a Keras
         ``.hdf5``/``.h5``. ``fast`` selects the JAX package's TPU T-packed
         rewrite, which is not ported: every value runs the plain eval
-        forward. ``mesh`` is not ported yet.
+        forward. ``mesh``: each slab of traces is split over the mesh's
+        ranks and gathered; every rank gets every mask.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device predict is not ported yet (ROADMAP Queue 1 "
-                "item 11: multi-GPU)")
+        check_mesh(mesh)
         if str(model_path).endswith((".hdf5", ".h5")):
             from deepcalcium_torch.interop.keras_import import load_unet1d_keras
 
@@ -433,7 +457,7 @@ class UNet1DSegmentation:
             params, state = ckpt["params"], ckpt["state"]
         net = from_jax_params(params, state, self.compute_dtype, self.device,
                               margin=int(error_margin)).eval()
-        fwd = T.make_eval_forward(net)
+        fwd = T.make_eval_forward(net, mesh)
 
         spikes_pred_all, names_all = [], []
         for p in dataset_paths:
@@ -441,7 +465,7 @@ class UNet1DSegmentation:
             traces = np.asarray(self.dataset_traces_func(p), np.float32)
             padded, t = _pad_to_multiple(traces, 16)
             out = _run_batched(fwd, torch.from_numpy(padded).to(self.device),
-                               max_batch=batch)
+                               max_batch=batch, mesh=mesh)
             spikes_pred = out[:, :t].cpu().numpy()
             spikes_pred_all.append((spikes_pred > threshold).astype(np.uint8))
         return spikes_pred_all, names_all

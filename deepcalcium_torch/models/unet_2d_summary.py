@@ -5,8 +5,13 @@ Port of ``deepcalcium_tpu.models.unet_2d_summary.UNet2DSummary``: the
 constructor with its injection points, ``fit``, ``evaluate_movie`` (a
 tensor, an array or a contract-HDF5 path; frames larger than the window
 run tiled) and ``predict`` over datasets. Weights come from a ``.ckpt`` of
-either package or a Keras ``.hdf5``. Multi-GPU (``mesh``) is a later part
-of the port (ROADMAP, Queue 1 item 11).
+either package or a Keras ``.hdf5``.
+
+``fit``, ``evaluate_movie`` and ``predict`` take ``mesh`` (a
+``parallel.mesh.Mesh``): every rank calls them with the same arguments and
+gets the same result. Rank 0 alone writes checkpoints, the CSV, plots and
+images; every decision (plateau, best epoch) comes from metrics that are
+identical on every rank.
 
 The default dataset accessors read the neurofinder HDF5 contract with
 ``h5py``, imported inside each function: a machine without ``h5py`` can
@@ -27,6 +32,7 @@ from deepcalcium_torch.models.unet2d import (UNet2DS, from_jax_params,
 from deepcalcium_torch.ops import losses as L
 from deepcalcium_torch.ops.mask_summary import (mask_summary_exact,
                                                 mask_summary_stencil)
+from deepcalcium_torch.parallel.mesh import agree, check_mesh
 from deepcalcium_torch.train import trainer as T
 from deepcalcium_torch.train.callbacks import CSVMetricsLogger, plot_metrics_grid
 from deepcalcium_torch.train.checkpoints import (latest_checkpoint,
@@ -213,8 +219,17 @@ class UNet2DSummary:
 
         ``steps_per_dispatch``, ``prng_impl``, ``preset`` and ``fast_train``
         select TPU dispatch, PRNG and lane-packing levers of the JAX package;
-        they are checked and logged, and change nothing here. ``mesh``
-        (multi-device training) is not ported yet.
+        they are checked and logged, and change nothing here.
+
+        ``mesh``: data-parallel training over the mesh's ranks
+        (``train.trainer.make_train_step``). Every rank runs the same
+        sampler from the same seed and trains on its rows of each batch, so
+        ``batch_size_trn`` must divide by ``mesh.size``; the validation
+        views are split over the ranks. Rank 0 alone writes to ``cpdir``,
+        which every rank must see if it is to read the returned
+        checkpoint. Dropout masks are drawn from a stream seeded with
+        ``seed + 1 + mesh.rank``: at ``drp > 0`` the run is not the
+        one-process run.
         """
         logger = logging.getLogger(__name__)
         if shape_trn[0] != shape_trn[1] or shape_val[0] != shape_val[1]:
@@ -245,10 +260,10 @@ class UNet2DSummary:
                              f"True or False")
         if not (lr_schedule in ("plateau", "cosine") or callable(lr_schedule)):
             raise ValueError(f"unknown lr_schedule: {lr_schedule!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP Queue 1 "
-                "item 11: multi-GPU)")
+        if check_mesh(mesh) is not None and batch_size_trn % mesh.size:
+            raise ValueError(f"batch_size_trn={batch_size_trn} must divide "
+                             f"by the mesh size {mesh.size}")
+        writes = mesh is None or mesh.rank == 0
         if (kdisp != 1 or prng_impl != "threefry2x32" or preset is not None
                 or fast_train != "auto"):
             logger.info(
@@ -299,15 +314,18 @@ class UNet2DSummary:
                                      weight_decay=weight_decay)
         if proceed and opt_state:
             T.load_optax_state_(net, optimizer, opt_state)
-        step = T.make_train_step(net, loss_fn, optimizer)
+        step = T.make_train_step(net, loss_fn, optimizer, mesh=mesh)
 
         sampler = WindowSampler(S, M, names, yctrn, shape_trn,
                                 nb_max_augment=nb_max_augment, seed=seed)
         prefetch = Prefetcher(sampler.batches(batch_size_trn),
-                              put_fn=make_put_fn(self.device))
+                              put_fn=make_put_fn(self.device, mesh))
 
         tic = int(time.time())
-        csvlog = CSVMetricsLogger(os.path.join(cpdir, f"{tic}_metrics.csv"))
+        if mesh is not None:
+            tic = agree(mesh, tic)  # one name for the files on every rank
+        csvlog = (CSVMetricsLogger(os.path.join(cpdir, f"{tic}_metrics.csv"))
+                  if writes else None)
         if lr_schedule == "plateau":
             plateau = T.ReduceLROnPlateau(factor=0.5, patience=5, min_lr=1e-4)
             next_lr = lambda epoch, agg, lr: plateau.update(agg.get("F1", 0.0), lr)
@@ -317,7 +335,8 @@ class UNet2DSummary:
         else:
             next_lr = lambda epoch, agg, lr: float(lr_schedule(epoch + 1))
         # Dropout keep-masks are drawn on the device from their own stream.
-        dropout_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        dropout_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 1 + (mesh.rank if mesh is not None else 0))
 
         best_f1, best_path = -1.0, None
         history: dict[str, list] = {}
@@ -332,7 +351,7 @@ class UNet2DSummary:
                     "steps, or expect near-zero validation metrics.",
                     ema_decay, nb_steps_trn * nb_epochs, 100 * w0,
                     0.05 ** (1.0 / max(1, nb_steps_trn * nb_epochs)))
-        eval_fwd = T.make_eval_forward(eval_net)
+        eval_fwd = T.make_eval_forward(eval_net, mesh)
         # Profile the first epoch after cuDNN's first calls.
         profile_epoch = 1 if nb_epochs > 1 else 0
 
@@ -362,7 +381,7 @@ class UNet2DSummary:
                     for b_avg, b in zip(eval_net.buffers(), net.buffers()):
                         b_avg.copy_(b)
                 vmet, name_to_f1 = self._validate(
-                    eval_fwd, S, M, names, ycval, shape_val, epoch)
+                    eval_fwd, S, M, names, ycval, shape_val, epoch, mesh)
                 agg.update(vmet)
                 if not np.isfinite(agg["loss"]):
                     raise FloatingPointError(
@@ -370,12 +389,13 @@ class UNet2DSummary:
                         f"{agg['loss']} (lr={T.current_lr(optimizer)})")
                 agg["lr"] = T.current_lr(optimizer)
                 agg["epoch_seconds"] = time.time() - t0
-                csvlog.append(epoch, agg)
                 for k, v in agg.items():
                     history.setdefault(k, []).append(v)
-                plot_metrics_grid(csvlog.history,
-                                  os.path.join(cpdir, f"{tic}_metrics.png"),
-                                  title=f"epoch {epoch}")
+                if writes:
+                    csvlog.append(epoch, agg)
+                    plot_metrics_grid(csvlog.history,
+                                      os.path.join(cpdir, f"{tic}_metrics.png"),
+                                      title=f"epoch {epoch}")
                 logger.info(
                     "epoch %d: loss=%.4f F1=%.4f val_nf_f1_mean=%.4f (%.1fs)",
                     epoch, agg["loss"], agg.get("F1", 0.0),
@@ -384,9 +404,12 @@ class UNet2DSummary:
                 cp = os.path.join(
                     cpdir,
                     f"{tic}_model_{epoch:02d}_{agg['val_nf_f1_mean']:.3f}.ckpt")
-                params, state = to_jax_params(eval_net)
-                save_checkpoint(cp, params, state, T.optax_state(net, optimizer),
-                                meta={"epoch": epoch, **{k: float(v) for k, v in agg.items()}})
+                if writes:
+                    params, state = to_jax_params(eval_net)
+                    save_checkpoint(
+                        cp, params, state, T.optax_state(net, optimizer),
+                        meta={"epoch": epoch,
+                              **{k: float(v) for k, v in agg.items()}})
                 if agg["val_nf_f1_mean"] > best_f1:
                     best_f1, best_path = agg["val_nf_f1_mean"], cp
 
@@ -398,10 +421,13 @@ class UNet2DSummary:
                     cb(epoch, agg)
         finally:
             prefetch.close()
-
+        if mesh is not None:
+            # No rank returns before rank 0 has written the last checkpoint.
+            mesh.barrier()
         return history, best_path
 
-    def _validate(self, eval_fwd, S, M, names, ycval, shape_val, epoch):
+    def _validate(self, eval_fwd, S, M, names, ycval, shape_val, epoch,
+                  mesh=None):
         """Neurofinder metrics on 6 dihedral full-image views per dataset
         ({identity, fliplr, flipud, rot90 x3}), on the validation rows only,
         all views in one batched forward. The band's crop drops its last row
@@ -420,7 +446,8 @@ class UNet2DSummary:
                 views.append(fs)
                 view_meta.append((fm, name, (yy.min(), yy.max(), xx.min(), xx.max())))
 
-        probs = predict_batched(eval_fwd, views, self.device, window=shape_val)
+        probs = predict_batched(eval_fwd, views, self.device, window=shape_val,
+                                mesh=mesh)
         pp, rr, ff = [], [], []
         name_to_f1: dict[str, list] = {}
         for mp, (m, name, (y0, y1, x0, x1)) in zip(probs, view_meta):
@@ -445,7 +472,7 @@ class UNet2DSummary:
 
     def evaluate_movie(self, movie, model_path=None, params=None, state=None,
                        window_shape=(512, 512), tta=True, threshold=0.5,
-                       fast="auto"):
+                       mesh=None, fast="auto"):
         """Segment a raw movie: mean summary (kernel K1 on the card) ->
         z-norm -> reflect-pad -> (8x TTA) forward -> threshold.
 
@@ -463,6 +490,10 @@ class UNet2DSummary:
                 ``params`` and ``state`` in the JAX package's layout.
             window_shape: inference window; frames reflect-pad up to it.
             tta: run the 8 dihedral views as one batch.
+            mesh: the time axis of the summary is split over the mesh's
+                ranks (each reads and folds only its frames), and the
+                views or tiles of the forward too; every rank passes the
+                same movie and gets the same result.
             fast: fold BN into the convs and use the sigmoid head (exact up
                 to float rounding). "auto" folds for a transpose-mode net
                 and a window of multiples of 16; True/False forces.
@@ -470,6 +501,7 @@ class UNet2DSummary:
         # Returns
             (mask uint8 (H, W), prob float32 (H, W)) as host numpy arrays.
         """
+        check_mesh(mesh)
         if params is None:
             if model_path is None:
                 raise ValueError("need model_path or params+state")
@@ -479,7 +511,7 @@ class UNet2DSummary:
                              "carries the BN moving statistics)")
         model = self._inference_net(params, state, window_shape, fast)
         kw = dict(window=window_shape, tta=tta, threshold=threshold,
-                  device=self.device)
+                  device=self.device, mesh=mesh)
 
         def oversized(h, w):
             return h > window_shape[0] or w > window_shape[1]
@@ -506,7 +538,7 @@ class UNet2DSummary:
         movie = movie.to(self.device)
         evaluate = make_movie_evaluator(model, movie.shape,
                                         window=window_shape, tta=tta,
-                                        threshold=threshold)
+                                        threshold=threshold, mesh=mesh)
         mask, prob, _ = evaluate(movie)
         return mask.cpu().numpy(), prob.cpu().numpy()
 
@@ -529,18 +561,16 @@ class UNet2DSummary:
 
         ``model_path``: a ``.ckpt`` of either package, a Keras ``.hdf5``
         (e.g. the reference's released ``unet2ds_model.hdf5``) or
-        "latest". ``fast``: as in :meth:`evaluate_movie`. ``mesh`` is not
-        ported yet.
+        "latest". ``fast``: as in :meth:`evaluate_movie`. ``mesh``: each
+        slab of views or tiles is split over the mesh's ranks; every rank
+        gets every mask, and rank 0 alone saves the images.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device predict is not ported yet (ROADMAP Queue 1 "
-                "item 11: multi-GPU)")
+        check_mesh(mesh)
         logger = logging.getLogger(funcname())
         params, state = self._load_params(model_path)
         logger.info("Loaded model from %s.", model_path)
         fwd = T.make_eval_forward(
-            self._inference_net(params, state, window_shape, fast))
+            self._inference_net(params, state, window_shape, fast), mesh)
 
         names = [self.dataset_name_func(p) for p in dataset_paths]
         S = [np.asarray(self.series_summary_func(p)) for p in dataset_paths]
@@ -563,11 +593,11 @@ class UNet2DSummary:
             small = [s for s, f in zip(S, fits) if f]
             small_probs = iter(
                 predictor(fwd, small, self.device, window=window_shape,
-                          max_batch=max_batch) if small else [])
+                          max_batch=max_batch, mesh=mesh) if small else [])
             probs = [next(small_probs) if f else
                      predict_tiled(fwd, s, self.device, window=window_shape,
                                    max_batch=max_batch,
-                                   tta=augmentation)
+                                   tta=augmentation, mesh=mesh)
                      for s, f in zip(S, fits)]
         Mp = [(p > threshold).astype(np.uint8) for p in probs]
 
@@ -591,7 +621,7 @@ class UNet2DSummary:
             logger.info("Mean prec=%.3f, reca=%.3f, comb=%.3f",
                         mean_p, mean_r, mean_c)
 
-        if save:
+        if save and (mesh is None or mesh.rank == 0):
             import h5py
 
             from deepcalcium_torch.utils.visualization import (mask_outlines,

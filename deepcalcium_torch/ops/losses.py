@@ -9,13 +9,47 @@ Port of ``deepcalcium_tpu.ops.losses``, with its conventions kept:
   probability of exactly 0.5 counts as negative in both packages.
 
 The ``*_loss`` functions do not round and are differentiable.
+
+Every function whose sums run over the batch takes ``mesh`` (a
+``parallel.mesh.Mesh``): ``yt`` and ``yp`` are then this rank's shard, and
+each sum is all-reduced over the ranks, differentiably, so that the value is
+the global batch's on every rank, as GSPMD makes it in the JAX package.
+``jacc_loss``, ``dice_loss`` and ``dicesq_loss`` are not linear in their
+sums: a mean of per-rank losses would be another number. The elementwise
+losses and the per-row counts take no mesh; the train step averages them
+over the global batch (:func:`with_mesh`, ``train.trainer``).
 """
+
+import functools
+import inspect
 
 import torch
 
-__all__ = ["EPS", "LOSSES", "NEURON_METRICS", "SPIKE_METRICS"]
+from deepcalcium_torch.parallel.mesh import psum
+
+__all__ = ["EPS", "LOSSES", "NEURON_METRICS", "SPIKE_METRICS", "with_mesh"]
 
 EPS = 1e-7  # K.epsilon() in Keras 2.0.6.
+
+
+def _sum(x, mesh=None):
+    """The sum of ``x``; over every rank's ``x`` under a mesh."""
+    s = torch.sum(x)
+    return s if mesh is None else psum(s, mesh)
+
+
+def with_mesh(fn, mesh):
+    """``fn(yt, yp)`` with ``mesh`` bound where ``fn`` takes one (also
+    through a ``functools.partial``). A function without a ``mesh``
+    argument is per sample (elementwise, or a value for each row), and is
+    returned as it is: its mean over the global batch is the caller's."""
+    if mesh is None:
+        return fn
+    try:
+        takes = "mesh" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):  # a callable without a signature
+        takes = False
+    return functools.partial(fn, mesh=mesh) if takes else fn
 
 
 # ---------------------------------------------------------------------------
@@ -37,89 +71,94 @@ def weighted_binary_crossentropy(yt, yp, weightpos=2.0, weightneg=1.0):
     return -1.0 * (weightpos * losspos + weightneg * lossneg)
 
 
-def jacc_loss(yt, yp):
+def jacc_loss(yt, yp, mesh=None):
     """Smooth (unrounded) Jaccard loss."""
-    inter = torch.sum(yt * yp)
-    union = torch.sum(yt) + torch.sum(yp) - inter
+    inter = _sum(yt * yp, mesh)
+    union = _sum(yt, mesh) + _sum(yp, mesh) - inter
     return 1.0 - inter / (union + 1e-7)
 
 
-def dice_loss(yt, yp):
+def dice_loss(yt, yp, mesh=None):
     """Smooth dice loss."""
-    inter = torch.sum(yt * yp)
-    return 1.0 - (2.0 * inter) / (torch.sum(yt) + torch.sum(yp) + 1e-7)
+    inter = _sum(yt * yp, mesh)
+    return 1.0 - (2.0 * inter) / (_sum(yt, mesh) + _sum(yp, mesh) + 1e-7)
 
 
-def dicesq_loss(yt, yp):
+def dicesq_loss(yt, yp, mesh=None):
     """Negated squared-denominator dice."""
-    return -1.0 * dicesq(yt, yp)
+    return -1.0 * dicesq(yt, yp, mesh)
 
 
 # ---------------------------------------------------------------------------
 # Metrics (2-D neurons)
 # ---------------------------------------------------------------------------
 
-def prec(yt, yp):
+def prec(yt, yp, mesh=None):
     """Batch-aggregate pixel precision."""
     ypr = torch.round(yp)
-    return torch.sum(ypr * yt) / (torch.sum(ypr) + EPS)
+    return _sum(ypr * yt, mesh) / (_sum(ypr, mesh) + EPS)
 
 
-def reca(yt, yp):
+def reca(yt, yp, mesh=None):
     """Batch-aggregate pixel recall."""
     ypr = torch.round(yp)
-    tp = torch.sum(ypr * yt)
-    fn = torch.sum(torch.clamp(yt - ypr, 0.0, 1.0))
+    tp = _sum(ypr * yt, mesh)
+    fn = _sum(torch.clamp(yt - ypr, 0.0, 1.0), mesh)
     return tp / (tp + fn + EPS)
 
 
-def F1(yt, yp):
+def F1(yt, yp, mesh=None):
     """Pixelwise F1 from the aggregate precision and recall."""
-    p = prec(yt, yp)
-    r = reca(yt, yp)
+    p = prec(yt, yp, mesh)
+    r = reca(yt, yp, mesh)
     return (2.0 * p * r) / (p + r + EPS)
 
 
-def jacc(yt, yp):
+def jacc(yt, yp, mesh=None):
     """Rounded Jaccard coefficient."""
     ypr = torch.round(yp)
-    inter = torch.sum(yt * ypr)
-    union = torch.sum(yt) + torch.sum(ypr) - inter
+    inter = _sum(yt * ypr, mesh)
+    union = _sum(yt, mesh) + _sum(ypr, mesh) - inter
     return inter / (union + 1e-7)
 
 
-def dice(yt, yp):
+def dice(yt, yp, mesh=None):
     """Rounded dice coefficient."""
     ypr = torch.round(yp)
-    inter = torch.sum(yt * ypr)
-    return (2.0 * inter) / (torch.sum(yt) + torch.sum(ypr) + 1e-7)
+    inter = _sum(yt * ypr, mesh)
+    return (2.0 * inter) / (_sum(yt, mesh) + _sum(ypr, mesh) + 1e-7)
 
 
-def dicesq(yt, yp):
+def dicesq(yt, yp, mesh=None):
     """Squared-denominator dice, unrounded (a metric, and negated a loss)."""
-    nmr = 2.0 * torch.sum(yt * yp)
-    dnm = torch.sum(yt**2) + torch.sum(yp**2) + EPS
+    nmr = 2.0 * _sum(yt * yp, mesh)
+    dnm = _sum(yt**2, mesh) + _sum(yp**2, mesh) + EPS
     return nmr / dnm
 
 
-def posyt(yt, yp):
+def _numel(x, mesh=None):
+    """Elements of the global batch: the ranks' shards are equally large."""
+    return x.numel() * (1 if mesh is None else mesh.size)
+
+
+def posyt(yt, yp, mesh=None):
     """Positive-pixel share of the ground truth."""
-    return torch.sum(yt) / (yt.numel() + EPS)
+    return _sum(yt, mesh) / (_numel(yt, mesh) + EPS)
 
 
-def posyp(yt, yp):
+def posyp(yt, yp, mesh=None):
     """Positive-pixel share of the rounded prediction."""
-    return torch.sum(torch.round(yp)) / (yp.numel() + EPS)
+    return _sum(torch.round(yp), mesh) / (_numel(yp, mesh) + EPS)
 
 
 # ---------------------------------------------------------------------------
 # Metrics (1-D spikes)
 # ---------------------------------------------------------------------------
 
-def F2(yt, yp, beta=2.0):
+def F2(yt, yp, beta=2.0, mesh=None):
     """Recall-weighted F-beta (beta=2)."""
-    p = prec(yt, yp)
-    r = reca(yt, yp)
+    p = prec(yt, yp, mesh)
+    r = reca(yt, yp, mesh)
     return (1.0 + beta**2) * ((p * r) / (beta**2 * p + r + EPS))
 
 

@@ -16,6 +16,9 @@ Port of ``deepcalcium_tpu.ops.summary``:
 - :class:`StreamingSummary` -- folds chunks of a movie that lives on the
   host (an array, an HDF5 dataset, decoded TIFFs) into mean and max, on the
   device the caller names.
+- :func:`movie_summary_sharded` -- the time axis split over the ranks of a
+  mesh: each rank folds its frames (K1's fold on a card), the totals and the
+  max are all-reduced.
 
 Both versions return the correctly rounded float32 time-sum divided by T:
 integer movies are summed exactly, float32 movies in float64. So the two
@@ -30,10 +33,14 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from deepcalcium_torch.parallel.mesh import check_mesh
 
 __all__ = ["movie_summary", "movie_summary_cuda", "movie_summary_fast",
            "movie_fold", "movie_fold_cuda", "movie_fold_fast",
-           "fold_accumulators", "finalise_fold", "StreamingSummary"]
+           "fold_accumulators", "finalise_fold", "StreamingSummary",
+           "movie_summary_sharded"]
 
 # Codes of the input dtypes K1 is instantiated for (csrc/summary.cu).
 _K1_DTYPES = {torch.int16: 0, torch.uint16: 1, torch.float32: 2}
@@ -342,3 +349,43 @@ class StreamingSummary:
         return mean, self._max.cpu().numpy().astype(
             _TORCH_TO_NP[self.dtype])
 
+
+
+def movie_summary_sharded(movie, mesh, chunk: int = 256):
+    """Mean and max with the time axis split over the ranks of ``mesh``.
+
+    Port of ``deepcalcium_tpu.ops.summary.movie_summary_sharded``. Every
+    rank is handed the same (T, H, W) movie (a tensor, a numpy array or an
+    open HDF5 dataset) and reads only its contiguous range of frames, which
+    it folds ``chunk`` frames at a time through :class:`StreamingSummary` on
+    ``mesh.device`` (K1's fold on a card, the plain fold on the CPU). The
+    totals are then summed and the max taken over the ranks, and the mean
+    is formed once from the global total.
+
+    The totals are exact, so any split of T gives K1's bits for int16 and
+    uint16 movies, and the JAX version's separate tail (for a T the mesh
+    does not divide) has no counterpart. A rank whose range is empty
+    (T < ``mesh.size``) folds nothing and still takes part in both
+    collectives. Float32 movies sum in float64, whose grouping depends on
+    the split: the mean is within 1 ulp of one K1 call's.
+
+    # Returns
+        (mean, mx): (H, W) float32 tensors on ``mesh.device``, the same on
+        every rank.
+    """
+    if check_mesh(mesh) is None:
+        raise TypeError("movie_summary_sharded needs a Mesh")
+    if len(movie.shape) != 3 or 0 in tuple(movie.shape):
+        raise ValueError(f"movie must be a non-empty (T, H, W), got shape "
+                         f"{tuple(movie.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be >= 1")
+    t, h, w = movie.shape
+    lo, hi = t * mesh.rank // mesh.size, t * (mesh.rank + 1) // mesh.size
+    ss = StreamingSummary((h, w), dtype=movie.dtype, device=mesh.device)
+    for i in range(lo, hi, chunk):
+        ss.update(movie[i:min(i + chunk, hi)])
+    total, mx = ss._total, ss._max
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=mesh.group)
+    return finalise_fold(total, t), mx

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from deepcalcium_torch.ops.augment import compose_random_walk
+from deepcalcium_torch.parallel.mesh import LocalShard, check_mesh, shard_batch
 
 __all__ = ["WindowSampler", "Prefetcher", "apply_d4_numpy", "make_put_fn"]
 
@@ -109,17 +110,28 @@ class WindowSampler:
             yield self.sample_batch(batch_size)
 
 
-def make_put_fn(device):
+def make_put_fn(device, mesh=None):
     """Host-to-device copy of a batch of numpy arrays, for
     :class:`Prefetcher`'s producer thread. For a CUDA device each array goes
     through pinned memory and is copied with ``non_blocking=True`` on the
     current stream, so the copy queues behind the step in flight instead of
-    waiting for it on the host."""
+    waiting for it on the host.
+
+    With a ``mesh`` only this rank's rows of each array are copied, marked
+    as a ``LocalShard`` so that the train step does not slice them again.
+    Every rank runs the same sampler from the same seed, so the ranks' rows
+    together are the batch one process would draw."""
     device = torch.device(device)
     if device.type != "cuda":
-        return lambda b: tuple(torch.from_numpy(a).to(device) for a in b)
-    return lambda b: tuple(torch.from_numpy(a).pin_memory().to(
-        device, non_blocking=True) for a in b)
+        put = lambda a: torch.from_numpy(a).to(device)
+    else:
+        put = lambda a: torch.from_numpy(a).pin_memory().to(
+            device, non_blocking=True)
+    if check_mesh(mesh) is None:
+        return lambda b: tuple(put(a) for a in b)
+    return lambda b: tuple(
+        put(np.ascontiguousarray(a)).as_subclass(LocalShard)
+        for a in shard_batch(mesh, tuple(b)))
 
 
 class Prefetcher:

@@ -14,6 +14,10 @@ Port of ``deepcalcium_tpu.train.trainer``:
   and the loss stay on the device as float32 scalars until the caller
   fetches them once per epoch.
 
+With a mesh (``parallel.mesh.Mesh``) the step is data parallel: each rank
+runs its slice of the global batch, and the BN statistics, the loss, the
+metrics and the gradients are those of the global batch.
+
 The JAX package's ``make_multi_step`` (a K-step ``lax.scan``) and
 ``stable_apply_fn`` work around dispatch latency and jit caches that
 PyTorch's eager execution does not have, and are not ported.
@@ -21,8 +25,10 @@ PyTorch's eager execution does not have, and are not ported.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deepcalcium_torch.ops import losses as L
+from deepcalcium_torch.parallel.mesh import check_mesh, local_shard, psum
 
 __all__ = ["make_optimizer", "current_lr", "set_lr", "ReduceLROnPlateau",
            "CosineDecay", "make_train_step", "ema_update", "make_eval_forward",
@@ -175,7 +181,7 @@ class CosineDecay:
             1.0 + float(np.cos(np.pi * frac)))
 
 
-def make_train_step(model, loss_fn, optimizer, metric_fns=None):
+def make_train_step(model, loss_fn, optimizer, metric_fns=None, mesh=None):
     """Build the train step of ``model`` (a ``UNet2DS`` or a ``UNet1D``).
 
     # Arguments
@@ -183,6 +189,17 @@ def make_train_step(model, loss_fn, optimizer, metric_fns=None):
         optimizer: e.g. :func:`make_optimizer` over ``model``.
         metric_fns: {name: f(yt, yp) -> scalar}; the 7 neuron metrics by
             default.
+        mesh: a ``parallel.mesh.Mesh`` for data parallelism. Every rank
+            calls the step with the same global batch and takes its slice
+            of it (a batch from ``make_put_fn(device, mesh)`` or
+            ``global_batch_from_local`` is this rank's slice already). The
+            BN statistics, the loss and the metrics are the global batch's
+            (``losses.with_mesh`` binds the mesh to the functions that sum
+            over the batch), and the gradients are combined before the
+            optimizer step, so that parameters, BN buffers and optimizer
+            state stay identical on every rank with no broadcast. Dropout
+            masks are each rank's own: one process is reproduced only at
+            ``drp=0``.
 
     # Returns
         step(x, y, generator=None) -> {name: float32 0-d tensor} on the
@@ -191,6 +208,8 @@ def make_train_step(model, loss_fn, optimizer, metric_fns=None):
         are updated in place; each ``.grad`` holds this step's gradient.
     """
     metric_fns = metric_fns if metric_fns is not None else dict(L.NEURON_METRICS)
+    if check_mesh(mesh) is not None:
+        return _make_mesh_step(model, loss_fn, optimizer, metric_fns, mesh)
 
     def step(x, y, generator=None):
         probs = model(x, train=True, generator=generator)
@@ -207,6 +226,49 @@ def make_train_step(model, loss_fn, optimizer, metric_fns=None):
     return step
 
 
+def _make_mesh_step(model, loss_fn, optimizer, metric_fns, mesh):
+    """The data-parallel train step. The mean over the global batch of a
+    per-rank mean is ``psum(mean) / mesh.size``: the shards are equally
+    large."""
+    loss_fn = L.with_mesh(loss_fn, mesh)
+    metric_fns = {k: L.with_mesh(fn, mesh) for k, fn in metric_fns.items()}
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def combine_gradients():
+        """One all-reduce of every gradient. ``psum`` in the forward makes
+        each rank's ``.grad`` ``mesh.size`` times its share of the global
+        gradient (see ``parallel.mesh.psum``): their sum over the ranks,
+        divided by ``mesh.size``, is the gradient of the global loss."""
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        flat /= mesh.size
+        for g, combined in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(combined.view_as(g))
+
+    def step(x, y, generator=None):
+        x, y = local_shard(mesh, x), local_shard(mesh, y)
+        probs = model(x, train=True, generator=generator, mesh=mesh)
+        loss = psum(loss_fn(y, probs).mean(), mesh) / mesh.size
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        combine_gradients()
+        optimizer.step()
+        with torch.no_grad():
+            p = probs.detach()
+            keys = list(metric_fns)
+            # One all-reduce for the global means of all the metrics.
+            vals = torch.stack([metric_fns[k](y, p).mean().float()
+                                for k in keys])
+            dist.all_reduce(vals, op=dist.ReduceOp.SUM, group=mesh.group)
+            vals /= mesh.size
+            metrics = dict(zip(keys, vals.unbind()))
+            metrics["loss"] = loss.detach().float()
+        return metrics
+
+    return step
+
+
 @torch.no_grad()
 def ema_update(ema, params, decay: float):
     """Polyak averaging in place over parameters only:
@@ -215,9 +277,13 @@ def ema_update(ema, params, decay: float):
         e.mul_(decay).add_(p.detach(), alpha=1.0 - decay)
 
 
-def make_eval_forward(model):
+def make_eval_forward(model, mesh=None):
     """Inference forward: (B, H, W) -> (B, H, W) probabilities (or (B, T)
-    -> (B, T) for a ``UNet1D``) with the BN running statistics."""
+    -> (B, T) for a ``UNet1D``) with the BN running statistics. Eval-mode
+    BN needs nothing of the other ranks, so the forward is the same under a
+    ``mesh``: the callers in ``train.evaluate`` split each slab over the
+    ranks and gather the results (``_run_batched``)."""
+    check_mesh(mesh)
 
     @torch.inference_mode()
     def fwd(x):

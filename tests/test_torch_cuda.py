@@ -124,6 +124,41 @@ def test_streaming_summary_on_card_matches_k1(cuda_device):
     np.testing.assert_array_equal(mx, k1_max.cpu().numpy().astype(np.int16))
 
 
+@pytest.mark.parametrize("dtype,maxulp", [(np.int16, 0), (np.uint16, 0),
+                                          (np.float32, 1)])
+def test_sharded_summary_on_an_nccl_group_of_one_matches_k1(cuda_device, dtype,
+                                                            maxulp):
+    """The sharded summary over NCCL, from a movie on the card and from the
+    same movie on the host: K1's fold per chunk, then both all-reduces.
+    Integer movies give one K1 call's bits; float32 ones are within 1 ulp
+    (float64 partial sums, grouped by chunk)."""
+    from deepcalcium_torch.parallel import distributed
+
+    rng = np.random.default_rng(11)
+    host = (rng.random((37, 96, 80)) * 4000).astype(dtype)
+    movie = torch.from_numpy(host).to(cuda_device)
+    k1_mean, k1_max = summary.movie_summary_cuda(movie)
+    distributed.initialize(f"127.0.0.1:{distributed._free_port()}", 1, 0)
+    try:
+        mesh = distributed.pod_mesh()
+        assert mesh.device.type == "cuda" and mesh.size == 1
+        for source in (movie, host):
+            before = summary.movie_fold_cuda.launches
+            mean, mx = summary.movie_summary_sharded(source, mesh, chunk=8)
+            assert summary.movie_fold_cuda.launches - before == 5
+            assert mean.device == mx.device == movie.device
+            np.testing.assert_array_max_ulp(mean.cpu().numpy(),
+                                            k1_mean.cpu().numpy(),
+                                            maxulp=max(maxulp, 1))
+            if not maxulp:
+                np.testing.assert_array_equal(mean.cpu().numpy(),
+                                              k1_mean.cpu().numpy())
+            np.testing.assert_array_equal(mx.cpu().numpy(),
+                                          k1_max.cpu().numpy())
+    finally:
+        distributed.shutdown()
+
+
 def test_movie_evaluator_on_card_matches_cpu(cuda_device):
     """The whole slice at a small size: the card (K1, float32 convs with
     TF32 off) against the CPU (plain summary), rtol=1e-4, atol=1e-5 on prob

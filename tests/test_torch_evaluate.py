@@ -180,8 +180,8 @@ def test_unet2dsummary_refuses_what_is_not_ported(tmp_path, tiny_net, movie):
 
     params, state = tiny_net
     model = UNet2DSummary(cpdir=str(tmp_path / "cp"), device="cpu")
-    # HDF5 paths, Keras weights and frames larger than the window are
-    # ported; only multi-device predict is not.
+    # HDF5 paths, Keras weights, frames larger than the window and a mesh
+    # are ported; anything but a Mesh is refused before any file is read.
     with pytest.raises(FileNotFoundError):
         model.evaluate_movie(str(tmp_path / "m.hdf5"), params=params,
                              state=state)
@@ -190,7 +190,7 @@ def test_unet2dsummary_refuses_what_is_not_ported(tmp_path, tiny_net, movie):
     assert mask.shape == prob.shape == movie.shape[1:]
     with pytest.raises(FileNotFoundError):
         model.evaluate_movie(movie, model_path=str(tmp_path / "w.hdf5"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         model.predict([], str(tmp_path / "w.hdf5"), mesh=object())
     with pytest.raises(ValueError, match="without state"):
         model.evaluate_movie(movie, params=params)

@@ -140,7 +140,7 @@ def test_default_accessors_match_jax(datasets):
     (dict(prng_impl="philox"), ValueError),
     (dict(fast_train="yes"), ValueError),
     (dict(lr_schedule="step"), ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh=object()), TypeError),
     (dict(model_path="weights.hdf5"), FileNotFoundError),
     (dict(model_path="weights.ckpt"), FileNotFoundError),
     (dict(model_path="latest"), FileNotFoundError),

@@ -69,14 +69,20 @@ def test_port_and_chip_smoke_never_import_jax():
     "deepcalcium_torch.ops.mask_summary",
     "deepcalcium_torch.utils.model_downloads",
     "deepcalcium_torch.data.fixtures",
+    "deepcalcium_torch.parallel.mesh",
+    "deepcalcium_torch.parallel.distributed",
+    "deepcalcium_torch.parallel.dryrun",
 ])
 def test_module_imports_no_jax_and_no_h5py(module):
     """Each module alone, in a fresh interpreter: nothing of JAX or of the
     JAX package, and none of h5py, PIL, requests or matplotlib (the command
-    line must start on a machine without them)."""
+    line must start on a machine without them). No import forms a process
+    group."""
     code = (
         "import sys, importlib\n"
         f"importlib.import_module({module!r})\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu', 'h5py', 'PIL', "
         "'requests', 'matplotlib'))\n"

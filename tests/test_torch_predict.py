@@ -105,7 +105,7 @@ def test_predict_with_injection_points(tmp_path):
                               augmentation=True)
     assert names == ["a", "b"]
     assert [m.shape for m in mp] == [(48, 48), (70, 50)]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         model.predict(list(S), CKPT, window_shape=WINDOW, mesh=object())
 
 

@@ -238,7 +238,7 @@ def test_apply_fn_takes_precedence_and_threshold_is_strict():
 def test_segment_movie_guards(nets):
     params, state = nets["transpose"]
     movie = make_movie(7, (3, 32, 32), np.int16)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         tseg.segment_movie(params, state, movie, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="slab"):
         tseg.segment_movie(params, state, movie, slab=0, device="cpu")

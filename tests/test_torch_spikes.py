@@ -332,7 +332,7 @@ def test_predict_from_keras_file_matches_jax(keras_file, datasets, tmp_path):
     (dict(preset="fastest"), ValueError, "preset"),
     (dict(prng_impl="philox"), ValueError, "prng_impl"),
     (dict(steps_per_dispatch=0), ValueError, "steps_per_dispatch"),
-    (dict(mesh=object()), NotImplementedError, "multi-device"),
+    (dict(mesh=object()), TypeError, "multi-device"),
 ])
 def test_fit_checks_knobs_before_any_dataset_io(tmp_path, kw, err, match):
     """A missing dataset would raise from h5py: each knob fails first, with
@@ -349,7 +349,7 @@ def test_steps_per_dispatch_must_divide_the_steps(datasets, tmp_path):
 
 
 def test_predict_rejects_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="multi-device"):
         _port_model(tmp_path).predict([], "model.ckpt", mesh=object())
 
 
