@@ -64,7 +64,18 @@ Phases, one line each, in order:
     ``make_movie_evaluator(mesh=)`` and ``segment_movie(mesh=)`` bit for
     bit the plain ones; and, where the machine has several cards,
     ``deepcalcium_torch/parallel/dryrun.py`` with one rank a card, rank 0
-    held against one process.
+    held against one process;
+21. the example scripts, ``examples_torch/**/main([...])`` with no
+    ``--device``, at nfb=32: the hyperparameter search (2 trials of one
+    10-step epoch with 512x512 validation on phase 7's movies, their
+    summaries from K1, then ``--resume`` to a third row), ``dataset_stats
+    --throughput`` on the phase-5 movie as a host array (its mask bit for
+    bit phase 9's), ``activation_maps`` on one 512x512 summary (18 captured
+    blocks, the probabilities bit for bit those without ``capture``), and
+    the four ``init_scheme``s (each kernel inside its bound, the large
+    ones' std within 2%, one train step to a finite loss). In-memory
+    arrays take the place of HDF5 files through each script's private
+    functions, as in phase 19.
 Then one JSON line with each kernel's record and the paths' numbers, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises, so the exit code is non-zero and no
@@ -119,7 +130,10 @@ def _device_time_per_call(fn, calls, skip=()):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The device's activity only: with the CPU's as well the profiler
+    # records every operator call and takes seconds to build its events,
+    # for the same kernel times and counts.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -557,6 +571,8 @@ def phase_fit(dev, seed):
         movies[name] = _synthetic_movie(dev, masks[name], FIT_FRAMES,
                                         seed + 10 + i)
 
+    truths = {name: mask_summary_exact(masks[name]) for name in movies}
+
     def series_summary(name):
         mean, _ = movie_summary_cuda(movies[name])
         return ((mean - mean.mean()) / mean.std(correction=0)).cpu().numpy()
@@ -573,7 +589,7 @@ def phase_fit(dev, seed):
     wrapper = UNet2DSummary(
         cpdir=str(cpdir), dataset_name_func=lambda name: name,
         series_summary_func=series_summary,
-        mask_summary_func=lambda name: mask_summary_exact(masks[name]),
+        mask_summary_func=truths.__getitem__,
         net_func=net_func, compute_dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -618,7 +634,7 @@ def phase_fit(dev, seed):
         # validation alone on the summaries fit used.
         net = nets[-1]
         S = [series_summary(n) for n in movies]
-        M = [mask_summary_exact(masks[n]) for n in movies]
+        M = [truths[n] for n in movies]
         sampler = WindowSampler(S, M, list(movies),
                                 [(0, WINDOW * 3 // 4)] * 2,
                                 (TRAIN_WINDOW, TRAIN_WINDOW),
@@ -670,7 +686,8 @@ def phase_fit(dev, seed):
           f"{1 - device_ms / step_ms:.1%} of it; most "
           f"device time: " + "; ".join(f"{n} {ms:.3f} ms" for n, ms in top),
           flush=True)
-    return launches, numbers
+    return launches, numbers, {"movies": movies, "masks": masks,
+                               "truths": truths}
 
 
 # --- The dataset-file inference path: fold, streaming, tiled, predict ------
@@ -2096,6 +2113,284 @@ def phase_parallel(dev, main, card, seed):
                       "cards": cards, "multi_card": multi}
 
 
+# --- The example scripts -----------------------------------------------------
+
+SEARCH_TRIALS, SEARCH_STEPS = 2, 10
+# Post-ReLU blocks that ``UNet2DS.forward(capture=)`` fills, with their
+# channels as multiples of nfb and their side as a fraction of the input's.
+CAPTURE_BLOCKS = (
+    [(f"enc{l}{ab}", 2 ** l, 2 ** l) for l in range(4) for ab in "ab"]
+    + [("mida", 16, 16), ("midb", 16, 16)]
+    + [(f"dec{l}{ab}", 2 ** l, 2 ** l) for l in (3, 2, 1, 0) for ab in "ab"])
+# Kernels with at least this many weights have their std checked: the
+# estimate of 65,536 draws has a relative error of 0.3%.
+INIT_STD_MIN_WEIGHTS = 65536
+
+
+def _init_scale(scheme, fan_in, fan_out):
+    """(bound on |w|, std) of an init scheme: a +-2 sigma truncated normal
+    has std 0.8796 sigma, a uniform draw in [-lim, lim] has lim / sqrt(3)."""
+    fan = fan_in if scheme.startswith("he") else fan_in + fan_out
+    if scheme.endswith("normal"):
+        sigma = math.sqrt(2.0 / fan)
+        return 2 * sigma, 0.8796 * sigma
+    lim = math.sqrt(6.0 / fan)
+    return lim, lim / math.sqrt(3)
+
+
+def phase_examples(dev, main, fit_ctx, card, seed):
+    """The example scripts on the card, through their ``main([...])``;
+    returns (K1 launches, numbers)."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models import blocks
+    from deepcalcium_torch.models.unet2d import (UNet2DS, from_jax_params,
+                                                 layer_order)
+    from deepcalcium_torch.models.unet_2d_summary import UNet2DSummary
+    from deepcalcium_torch.ops.losses import binary_crossentropy
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+    from deepcalcium_torch.train import trainer
+    from deepcalcium_torch.train.checkpoints import save_checkpoint
+    from examples_torch.analysis import activation_maps as maps
+    from examples_torch.analysis import dataset_stats as stats
+    from examples_torch.neurons import unet2ds_hyperparam_search as search
+
+    out = REPO / "build" / "chip_smoke_examples"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ckpt = str(out / "unet2ds_random.ckpt")
+    save_checkpoint(ckpt, main["params"], main["state"])
+    movies, masks, truths = (fit_ctx[k] for k in ("movies", "masks", "truths"))
+    names = list(movies)
+    devices = []
+
+    def series_summary(name):
+        mean, _ = movie_summary_cuda(movies[name])
+        return ((mean - mean.mean()) / mean.std(correction=0)).cpu().numpy()
+
+    def run(fn, argv, **kw):
+        """``fn(argv)`` with its printed lines returned, and shown."""
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = fn(argv, **kw)
+        finally:
+            print(buf.getvalue(), end="", flush=True)
+        return result, buf.getvalue()
+
+    # The search: full width, so nfb is pinned to 32; every other axis is
+    # sampled from the script's own space.
+    space = {**search.SPACE, "nfb": [NFB]}
+    trial_launches = []
+
+    def search_wrapper(cfg, cpdir, device):
+        devices.append(device)
+        trial_launches.append(movie_summary_cuda.launches)
+        return UNet2DSummary(
+            cpdir=cpdir, dataset_name_func=lambda name: name,
+            series_summary_func=search.scaled_summary_func(
+                cfg["scale_mode"], series_summary),
+            mask_summary_func=truths.__getitem__,
+            net_func=search.net_func(cfg), compute_dtype=torch.bfloat16,
+            device=device)
+
+    def stats_wrapper(device):
+        devices.append(device)
+        return UNet2DSummary(mask_summary_func=truths.__getitem__,
+                             compute_dtype=torch.bfloat16, device=device)
+
+    sink = {}
+    seams = [(search, "_wrapper", search_wrapper),
+             (stats, "_wrapper", stats_wrapper),
+             (stats, "_dataset_info", lambda n: (
+                 n, tuple(movies[n].shape), masks[n].shape[0])),
+             (stats, "_throughput_movie", lambda t, hw: main["host"]),
+             (maps, "_summary", lambda path: series_summary(path))]
+    if importlib.util.find_spec("PIL") is None:
+        seams.append((maps, "_save_png", lambda path, arr: sink.__setitem__(
+            os.path.basename(path), np.asarray(arr))))
+    saved = [(mod, k, getattr(mod, k)) for mod, k, _ in seams]
+    old_dir = os.environ.get("DEEPCALCIUM_TPU_DIR")
+    os.environ["DEEPCALCIUM_TPU_DIR"] = str(out / "dc")
+    for mod, k, fn in seams:
+        setattr(mod, k, fn)
+    movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        csv_path = str(out / "search.csv")
+        argv = ["fixtures", "--paths", *names, "--epochs", "1", "--steps",
+                str(SEARCH_STEPS), "--val-shape", str(WINDOW), "--out",
+                csv_path, "--seed", str(seed)]
+        run(search.main, argv + ["--trials", str(SEARCH_TRIALS)], space=space)
+        rows = search.load_rows(csv_path)
+        trial_launches.append(movie_summary_cuda.launches)
+        per_trial = np.diff(trial_launches).tolist()
+        rng = np.random.default_rng(seed)
+        want = [search.sample(rng, space) for _ in range(SEARCH_TRIALS + 1)]
+        if len(rows) != SEARCH_TRIALS or min(per_trial) < 1:
+            raise AssertionError(f"search: {len(rows)} rows, K1 launches a "
+                                 f"trial {per_trial}")
+        run(search.main, argv + ["--trials", str(SEARCH_TRIALS + 1),
+                                 "--resume"], space=space)
+        rows3 = search.load_rows(csv_path)
+        if len(rows3) != SEARCH_TRIALS + 1 or rows3[:SEARCH_TRIALS] != rows:
+            raise AssertionError(f"--resume left {len(rows3)} rows")
+        for row, cfg in zip(rows3, want):
+            if {k: str(v) for k, v in cfg.items()} != {k: row[k] for k in cfg}:
+                raise AssertionError(f"trial {row['trial']} ran {row}, the "
+                                     f"stream gives {cfg}")
+            if not math.isfinite(float(row["val_nf_f1_mean"])):
+                raise AssertionError(f"trial {row['trial']} failed: {row}")
+        search_launches = movie_summary_cuda.launches
+        trial_s = [float(r["seconds"]) for r in rows3]
+        search_s = time.perf_counter() - t0
+
+        # dataset_stats --throughput, under deterministic cuDNN so that its
+        # mask compares bit for bit with phase 9's (the forward's algorithms
+        # are deterministic either way; the time is the script's own third
+        # call).
+        stats_argv = ["fixtures", "--paths", *names, "--throughput", "--model",
+                      ckpt, "--throughput-frames", str(FRAMES),
+                      "--throughput-size", str(WINDOW)]
+        torch.backends.cudnn.deterministic = True
+        timed, text = run(stats.main, stats_argv)
+        torch.backends.cudnn.deterministic = False
+        if not (np.array_equal(timed["mask"], main["mask"])
+                and np.array_equal(timed["prob"], main["prob"])):
+            raise AssertionError("dataset_stats: mask/prob differ from the "
+                                 "streaming evaluate's")
+        name = torch.cuda.get_device_name(dev)
+        if f"warm, on {name}): " not in text or f"totals: {2 * FIT_FRAMES} " \
+                f"frames, {sum(m.shape[0] for m in masks.values())} neurons" \
+                not in text:
+            raise AssertionError(f"dataset_stats printed {text!r}")
+        stats_launches = movie_summary_cuda.launches - search_launches
+        if stats_launches != 3:
+            raise AssertionError(f"dataset_stats launched K1 "
+                                 f"{stats_launches} times in 3 evaluates")
+        # What an array costs before K1 sees it: the one pageable copy.
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.from_numpy(main["host"]).to(dev)
+        torch.cuda.synchronize()
+        copy_ms = (time.perf_counter() - t1) * 1e3
+
+        # activation_maps on the phase-5 movie's summary.
+        movies["main"] = main["movie"]
+        z = series_summary("main")
+        maps_dir = out / "maps"
+        _, text = run(maps.main, ["main", ckpt, str(maps_dir)])
+        wrote = sorted(sink) if sink else sorted(os.listdir(maps_dir))
+        if wrote != sorted([n + ".png" for n, _, _ in CAPTURE_BLOCKS]
+                           + ["prediction.png"]) or \
+                "wrote 19 activation maps" not in text:
+            raise AssertionError(f"activation_maps wrote {wrote}")
+        for png, arr in sink.items():
+            if arr.shape != (WINDOW, WINDOW) or not (
+                    np.isfinite(arr).all() and 0 <= arr.min() <= arr.max() <= 1):
+                raise AssertionError(f"bad activation map {png}")
+        torch.backends.cudnn.deterministic = True
+        probs, acts = maps.activation_maps(main["params"], main["state"], z, dev)
+        with torch.inference_mode():
+            plain = from_jax_params(main["params"], main["state"],
+                                    device=dev).eval()(
+                torch.from_numpy(z).to(dev)[None])[0]
+        torch.backends.cudnn.deterministic = False
+        if not torch.equal(probs, plain):
+            raise AssertionError("capture changed the probabilities")
+        got = [(n, a.shape[0] // NFB, WINDOW // a.shape[1]) for n, a in acts.items()]
+        if got != CAPTURE_BLOCKS or any(
+                a.shape[1] != a.shape[2] or not torch.isfinite(a).all()
+                or a.min() < 0 for a in acts.values()):
+            raise AssertionError(f"captured {got}")
+        maps_launches = (movie_summary_cuda.launches - search_launches
+                         - stats_launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        movies.pop("main", None)
+        for mod, k, fn in saved:
+            setattr(mod, k, fn)
+        if old_dir is None:
+            del os.environ["DEEPCALCIUM_TPU_DIR"]
+        else:
+            os.environ["DEEPCALCIUM_TPU_DIR"] = old_dir
+    launches = movie_summary_cuda.launches + movie_fold_cuda.launches
+    shutil.rmtree(out, ignore_errors=True)
+
+    # The four init schemes at full width: bounds, stds, one train step.
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xb = torch.randn((TRAIN_BATCH, TRAIN_WINDOW, TRAIN_WINDOW), generator=g,
+                     device=dev)
+    yb = (torch.rand(xb.shape, generator=g, device=dev) < 0.126).float()
+    init = {}
+    for scheme in blocks.INIT_SCHEMES:
+        net = UNet2DS(nfb=NFB, compute_dtype=torch.bfloat16,
+                      init_scheme=scheme,
+                      generator=torch.Generator().manual_seed(seed)).to(dev)
+        worst_bound, worst_std, checked = 0.0, 0.0, 0
+        for lname, kind, _ in layer_order(NFB):
+            if kind == "bn":
+                continue
+            w = getattr(net, lname).weight.detach()
+            if kind == "tconv":
+                fans = (4 * w.shape[1], 4 * w.shape[0])
+            else:
+                k = w.shape[-1]
+                fans = (k * k * w.shape[1], k * k * w.shape[0])
+            bound, std = _init_scale(scheme, *fans)
+            worst_bound = max(worst_bound, w.abs().max().item() / bound)
+            if w.numel() >= INIT_STD_MIN_WEIGHTS:
+                checked += 1
+                worst_std = max(worst_std, abs(w.std().item() / std - 1))
+        if worst_bound > 1 + 1e-6 or worst_std > 0.02:
+            raise AssertionError(f"{scheme}: max |w| / bound {worst_bound}, "
+                                 f"std off by {worst_std}")
+        step = trainer.make_train_step(net, binary_crossentropy,
+                                       trainer.make_optimizer(net, 1e-3))
+        loss = float(step(xb, yb, g)["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"{scheme}: loss {loss} after one step")
+        init[scheme] = {"max_over_bound": worst_bound, "std_off": worst_std,
+                        "std_checked_kernels": checked, "loss": loss}
+    if set(devices) != {"cuda"}:
+        raise AssertionError(f"scripts ran on {set(devices)}")
+    seconds = time.perf_counter() - t0
+    numbers = {
+        "seconds": seconds, "search_seconds": search_s,
+        "search_trial_seconds": trial_s,
+        "search_f1": [float(r["val_nf_f1_mean"]) for r in rows3],
+        "search_configs": want, "search_k1_launches_per_trial": per_trial,
+        "stats_seconds_per_call": timed["seconds"],
+        "stats_frames_per_s": timed["frames_per_s"],
+        "stats_pageable_copy_ms": copy_ms,
+        "k1_launches": {"search": search_launches, "dataset_stats":
+                        stats_launches, "activation_maps": maps_launches},
+        "init": init}
+    print(f"examples through main([...]) with in-memory movies and "
+          f"summaries in place of HDF5 files, no --device: search nfb={NFB} "
+          f"bf16, {SEARCH_TRIALS} trials + 1 resumed of {SEARCH_STEPS} steps, "
+          f"validation at {WINDOW}^2: {trial_s} s a trial, val F1 "
+          f"{[round(v, 4) for v in numbers['search_f1']]}, K1 launches a "
+          f"trial {per_trial}; dataset_stats --throughput on the phase-5 "
+          f"movie as a host array: mask/prob bit for bit phase 9's, "
+          f"{timed['seconds'] * 1e3:.1f} ms a call = "
+          f"{timed['frames_per_s']:.1f} frames/s, of which the pageable copy "
+          f"of the movie alone {copy_ms:.1f} ms; activation_maps: 19 maps, "
+          f"18 blocks, probabilities bit for bit those without capture; "
+          f"init schemes "
+          + ", ".join(f"{k} loss {v['loss']:.4f}" for k, v in init.items())
+          + f" (max |w| / bound <= {max(v['max_over_bound'] for v in init.values()):.6f}, "
+          f"std within {max(v['std_off'] for v in init.values()):.2%}); "
+          f"{seconds:.1f} s; {card}", flush=True)
+    return launches, numbers
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2119,7 +2414,7 @@ def main(argv=None):
     eval_launches, eval_ms, main_ctx = timed("evaluate", phase_main, dev,
                                              args.seed, FRAMES)
     golden_errs = timed("train_golden", phase_train_golden, dev)
-    fit_launches, fit = timed("fit", phase_fit, dev, args.seed)
+    fit_launches, fit, fit_ctx = timed("fit", phase_fit, dev, args.seed)
     fold_err, fold = timed("fold", phase_fold, dev, args.seed)
     stream_launches, stream = timed("stream", phase_stream, dev, main_ctx)
     tiled_launches, tiled, tiled_movie = timed("tiled", phase_tiled, dev,
@@ -2135,6 +2430,8 @@ def main(argv=None):
     cli_launches, cli = timed("cli", phase_cli, dev, main_ctx, fit1d_ctx, card)
     par_launches, parallel = timed("parallel", phase_parallel, dev, main_ctx,
                                    card, args.seed)
+    ex_launches, examples = timed("examples", phase_examples, dev, main_ctx,
+                                  fit_ctx, card, args.seed)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "deepcalcium_tpu"))
     if bad:
@@ -2149,7 +2446,7 @@ def main(argv=None):
                "predict1d": predict1d["k1_launches"],
                "glm": glm["k1_launches"],
                "segment": segment["k1_launches"], "cli": cli_launches,
-               "parallel": par_launches}
+               "parallel": par_launches, "examples": ex_launches}
     print(json.dumps({"kernels": [{
         "name": "K1 movie_summary_cuda (+ fold entry movie_fold_cuda)",
         "route": "cuda",
@@ -2167,7 +2464,8 @@ def main(argv=None):
         "golden1d_max_abs_err": golden1d_err,
         "train_golden1d_max_abs_err": golden1d_errs, "fit1d": fit1d,
         "predict1d": predict1d, "glm": glm, "segment": segment,
-        "stencil": stencil, "cli": cli, "parallel": parallel, "card": card,
+        "stencil": stencil, "cli": cli, "parallel": parallel, "examples": examples,
+        "card": card,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ from deepcalcium_torch.parallel.mesh import psum
 __all__ = ["BN_EPS", "Conv2d", "Conv1d", "ConvTranspose2x2", "BatchNorm",
            "conv2d", "conv1d", "tconv2x2", "maxpool2", "pool2",
            "maxpool1d_same", "upsample1d", "batch_norm", "batch_stats",
-           "dropout", "dropout_with_mask", "he_normal_"]
+           "dropout", "dropout_with_mask", "he_normal_", "kernel_init_",
+           "INIT_SCHEMES"]
 
 BN_EPS = 1e-3  # Keras 2.0.6 BatchNormalization default epsilon.
 
@@ -34,10 +35,37 @@ def he_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
     """Keras-2.0.6 ``he_normal``: a standard normal truncated at +-2 sigma,
     scaled by sqrt(2 / fan_in), with no truncation-variance correction
     (``deepcalcium_tpu.models.blocks._truncated_normal``)."""
+    return _truncated_normal_(w, (2.0 / fan_in) ** 0.5, generator)
+
+
+INIT_SCHEMES = ("he_normal", "he_uniform", "glorot_uniform", "glorot_normal")
+
+
+def _truncated_normal_(w, stddev: float, generator):
     with torch.no_grad():
         nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        w.mul_((2.0 / fan_in) ** 0.5)
+        w.mul_(stddev)
     return w
+
+
+def kernel_init_(w: torch.Tensor, fan_in: int, fan_out: int,
+                 scheme: str = "he_normal", generator=None):
+    """Fill ``w`` by scheme name, the init axis of the hyperparameter search
+    (``deepcalcium_tpu.models.blocks.kernel_init``). The normal schemes are the
+    Keras-2.0.6 +-2 sigma truncated normal with no variance correction, of
+    sigma sqrt(2 / fan_in) (``he_normal``) or sqrt(2 / (fan_in + fan_out))
+    (``glorot_normal``); the uniform schemes draw in [-lim, lim] with lim
+    sqrt(6 / fan_in) (``he_uniform``) or sqrt(6 / (fan_in + fan_out))
+    (``glorot_uniform``). ``he_normal`` consumes ``generator`` exactly as
+    :func:`he_normal_` does."""
+    if scheme not in INIT_SCHEMES:
+        raise ValueError(f"unknown init scheme: {scheme!r}")
+    fan = fan_in if scheme.startswith("he") else fan_in + fan_out
+    if scheme.endswith("normal"):
+        return _truncated_normal_(w, (2.0 / fan) ** 0.5, generator)
+    lim = (6.0 / fan) ** 0.5
+    with torch.no_grad():
+        return w.uniform_(-lim, lim, generator=generator)
 
 
 def _cast(dtype, *ts):
@@ -169,12 +197,14 @@ def dropout(x, rate: float, train: bool, generator=None):
 
 
 class Conv2d(nn.Module):
-    """SAME conv holder: ``weight`` OIHW, ``bias`` (Cout,)."""
+    """SAME conv holder: ``weight`` OIHW, ``bias`` (Cout,). Fans are
+    k * k * Cin and k * k * Cout (``blocks.init_conv``)."""
 
-    def __init__(self, cin, cout, k, generator):
+    def __init__(self, cin, cout, k, generator, init_scheme="he_normal"):
         super().__init__()
-        self.weight = nn.Parameter(he_normal_(torch.empty(cout, cin, k, k),
-                                              cin * k * k, generator))
+        self.weight = nn.Parameter(kernel_init_(
+            torch.empty(cout, cin, k, k), k * k * cin, k * k * cout,
+            init_scheme, generator))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x, dtype=None):
@@ -198,13 +228,14 @@ class Conv1d(nn.Module):
 class ConvTranspose2x2(nn.Module):
     """k=s=2 transpose conv holder: ``weight`` (Cin, Cout, 2, 2).
 
-    he_normal fan_in is 4 * Cout, the Keras quirk the JAX package keeps
-    (``blocks.init_tconv``: Keras reads fans off the raw HWOI shape)."""
+    fan_in is 4 * Cout and fan_out 4 * Cin, the Keras quirk the JAX package
+    keeps (``blocks.init_tconv``: Keras reads fans off the raw HWOI shape)."""
 
-    def __init__(self, cin, cout, generator):
+    def __init__(self, cin, cout, generator, init_scheme="he_normal"):
         super().__init__()
-        self.weight = nn.Parameter(he_normal_(torch.empty(cin, cout, 2, 2),
-                                              4 * cout, generator))
+        self.weight = nn.Parameter(kernel_init_(
+            torch.empty(cin, cout, 2, 2), 4 * cout, 4 * cin, init_scheme,
+            generator))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x, dtype=None):

@@ -94,15 +94,20 @@ class UNet2DS(nn.Module):
         drp: base dropout rate of the training forward (0.25 published).
         remat: recompute each conv-BN-ReLU block in the backward pass
             (``torch.utils.checkpoint``) instead of keeping its activations.
+        init_scheme: how every conv, transpose-conv and head kernel is
+            drawn: 'he_normal' (the published default), 'he_uniform',
+            'glorot_uniform' or 'glorot_normal' (``blocks.kernel_init_``),
+            the init axis of the hyperparameter search.
     """
 
     def __init__(self, nfb: int = _F, up_mode: str = "transpose",
                  compute_dtype=None, generator=None, drp: float = 0.25,
-                 remat: bool = False):
+                 remat: bool = False, init_scheme: str = "he_normal"):
         super().__init__()
         self.nfb, self.up_mode = nfb, up_mode
         self.compute_dtype = compute_dtype
         self.drp, self.remat = drp, remat
+        self.init_scheme = init_scheme
         self.folded = False
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -111,11 +116,14 @@ class UNet2DS(nn.Module):
         for name, kind, cout in layer_order(nfb, up_mode):
             if kind == "conv3":
                 cin = nfb * _DEC_IN[name] * mult if name in _DEC_IN else cin
-                self.add_module(name, B.Conv2d(cin, cout, 3, generator))
+                self.add_module(name, B.Conv2d(cin, cout, 3, generator,
+                                                 init_scheme))
             elif kind == "conv1":
-                self.add_module(name, B.Conv2d(cin, cout, 1, generator))
+                self.add_module(name, B.Conv2d(cin, cout, 1, generator,
+                                                 init_scheme))
             elif kind == "tconv":
-                self.add_module(name, B.ConvTranspose2x2(cin, cout, generator))
+                self.add_module(name, B.ConvTranspose2x2(
+                    cin, cout, generator, init_scheme))
             else:
                 # Keras momentum: 0.5 after the transpose convs, else 0.99.
                 momentum = 0.5 if name.startswith("up") else 0.99
@@ -158,7 +166,8 @@ class UNet2DS(nn.Module):
             y = getattr(self, f"{name}_bn")(y, train, mesh)
         return torch.relu(y)
 
-    def forward(self, x, train: bool = False, generator=None, mesh=None):
+    def forward(self, x, train: bool = False, generator=None, mesh=None,
+                capture=None):
         """(B, H, W) -> (B, H, W) float32 probabilities; H, W % 16 == 0.
 
         ``train=True`` normalises by batch statistics, updates the BN
@@ -166,7 +175,16 @@ class UNet2DS(nn.Module):
         from ``generator`` (a ``torch.Generator`` on the input's device).
         Skips are taken after dropout, as in the JAX package. With a
         ``mesh``, ``x`` is this rank's shard of the batch and the training
-        statistics are the global batch's (``blocks.batch_stats``)."""
+        statistics are the global batch's (``blocks.batch_stats``).
+
+        ``capture``: an optional dict that each conv-BN-ReLU block fills
+        with its post-ReLU activation, (B, C, H', W') in the compute dtype,
+        under the JAX package's names in the order its ``apply`` fills them:
+        ``enc0a`` ... ``enc3b``, ``mida``, ``midb``, ``dec3a`` ... ``dec0b``
+        (18 entries; the ``up*`` blocks are not captured, as there). The
+        tensors are the forward's own, not copies, and the output does not
+        change by a bit. A folded net captures too: its blocks compute the
+        same activations up to float rounding, since the fold is exact."""
         if train and self.folded:
             raise ValueError("a folded model has no BN to train")
         if train and self.drp and generator is None:
@@ -175,20 +193,25 @@ class UNet2DS(nn.Module):
         d = self.drp
         h = x[:, None].to(self.compute_dtype or x.dtype)
         skips = []
+
+        def cbr(name, h):
+            y = self._cbr(name, h, train, mesh)
+            if capture is not None:
+                capture[name] = y
+            return y
+
         for lvl, rate in enumerate((0.0, d, 2 * d, 2 * d)):
-            h = self._cbr(f"enc{lvl}b",
-                          self._cbr(f"enc{lvl}a", h, train, mesh), train, mesh)
+            h = cbr(f"enc{lvl}b", cbr(f"enc{lvl}a", h))
             h = B.dropout(h, rate, train, generator)
             skips.append(h)
             h = B.maxpool2(h)
-        h = self._cbr("midb", self._cbr("mida", h, train, mesh), train, mesh)
+        h = cbr("midb", cbr("mida", h))
         for lvl in (3, 2, 1, 0):
             h = B.dropout(self._up(f"up{lvl}", h, train, mesh),
                           d if lvl == 0 else 2 * d, train, generator)
             # Channel order [up, skip], as the Keras builder concatenates.
             h = torch.cat([h, skips[lvl]], dim=1)
-            h = self._cbr(f"dec{lvl}b",
-                          self._cbr(f"dec{lvl}a", h, train, mesh), train, mesh)
+            h = cbr(f"dec{lvl}b", cbr(f"dec{lvl}a", h))
         head = self.head_conv
         if self.folded:
             # softmax([a, b])[1] == sigmoid(b - a), in float32.

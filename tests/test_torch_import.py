@@ -72,12 +72,20 @@ def test_port_and_chip_smoke_never_import_jax():
     "deepcalcium_torch.parallel.mesh",
     "deepcalcium_torch.parallel.distributed",
     "deepcalcium_torch.parallel.dryrun",
+    "examples_torch.neurons.unet2ds_nf",
+    "examples_torch.neurons.unet2ds_sj",
+    "examples_torch.neurons.nf_videos",
+    "examples_torch.neurons.unet2ds_hyperparam_search",
+    "examples_torch.spikes.unet1d_spikes",
+    "examples_torch.analysis.dataset_stats",
+    "examples_torch.analysis.activation_maps",
+    "examples_torch.analysis.spike_stats",
 ])
 def test_module_imports_no_jax_and_no_h5py(module):
     """Each module alone, in a fresh interpreter: nothing of JAX or of the
     JAX package, and none of h5py, PIL, requests or matplotlib (the command
-    line must start on a machine without them). No import forms a process
-    group."""
+    line and the example scripts must start on a machine without them). No
+    import forms a process group."""
     code = (
         "import sys, importlib\n"
         f"importlib.import_module({module!r})\n"

@@ -206,3 +206,209 @@ def test_he_normal_init_is_seeded_and_truncated():
     t = a.up1_tconv.weight  # Keras fan quirk: fan_in = 4 * cout
     assert t.abs().max() <= 2 * (2.0 / (4 * 16)) ** 0.5 + 1e-7
     assert torch.equal(a.enc0a_bn.running_var, torch.ones(8))
+
+
+# --- init_scheme ------------------------------------------------------------
+
+def _param_hash(model):
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().numpy().tobytes())
+    return h.hexdigest()
+
+
+# sha256 over (name, float32 bytes) of every parameter of
+# UNet2DS(nfb=4, generator=manual_seed(3)), taken before ``init_scheme``
+# existed: the default must draw the same bits from the same generator.
+DEFAULT_INIT_HASHES = {
+    "transpose":
+        "518650d32b98f52c0fb77c732380bd8191c7187c06da9bd98a59beeffad6731f",
+    "upsampling":
+        "8e3747fe0f4f1ff972001497bc333b777dc27c8ec773f9f8096a0e813f4b063f",
+}
+
+
+@pytest.mark.parametrize("up_mode", ["transpose", "upsampling"])
+def test_default_init_draws_the_same_bits_as_before(up_mode):
+    for kw in ({}, {"init_scheme": "he_normal"}):
+        model = tunet.UNet2DS(nfb=4, up_mode=up_mode,
+                              generator=torch.Generator().manual_seed(3), **kw)
+        assert _param_hash(model) == DEFAULT_INIT_HASHES[up_mode]
+        assert model.init_scheme == "he_normal"
+
+
+def _scheme_scale(scheme, fan_in, fan_out):
+    """(bound on |w|, expected std) of a scheme. A +-2 sigma truncated
+    normal has std 0.8796 sigma (no correction); a uniform draw in
+    [-lim, lim] has std lim / sqrt(3)."""
+    fan = fan_in if scheme.startswith("he") else fan_in + fan_out
+    if scheme.endswith("normal"):
+        sigma = (2.0 / fan) ** 0.5
+        return 2 * sigma, 0.8796 * sigma
+    lim = (6.0 / fan) ** 0.5
+    return lim, lim / 3 ** 0.5
+
+
+@pytest.mark.parametrize("scheme", tblocks.INIT_SCHEMES)
+def test_kernel_init_bound_and_std(scheme):
+    """The bound holds exactly (plus float32 rounding of the scale); the std
+    of 262,144 draws lies within 3% of the scheme's."""
+    fan_in, fan_out = 9 * 64, 9 * 32
+    w = tblocks.kernel_init_(torch.empty(512, 512), fan_in, fan_out, scheme,
+                             torch.Generator().manual_seed(11))
+    bound, std = _scheme_scale(scheme, fan_in, fan_out)
+    assert w.abs().max().item() <= bound * (1 + 1e-6)
+    assert w.abs().max().item() > 0.98 * bound
+    assert abs(w.std().item() / std - 1) < 0.03
+    assert abs(w.mean().item()) < 0.01 * std * 3
+
+
+@pytest.mark.parametrize("scheme", tblocks.INIT_SCHEMES)
+def test_init_scheme_fans_match_jax(scheme):
+    """The conv and transpose-conv fans are the JAX package's: a uniform
+    draw's limit and a normal draw's std agree with ``blocks.init_conv`` /
+    ``init_tconv`` draws of the same shapes (the two PRNGs differ, so the
+    statistics are compared: max-abs within 1% and std within 3% on
+    kernels of 36,864 and 32,768 weights), and with the formula exactly in
+    the bound."""
+    g = torch.Generator().manual_seed(5)
+    key = jax.random.PRNGKey(5)
+    cin, cout = 64, 64
+    conv = tblocks.Conv2d(cin, cout, 3, g, scheme).weight.detach()
+    jconv = np.asarray(jblocks.init_conv(key, (3, 3), cin, cout, scheme)["kernel"])
+    assert tuple(conv.shape) == (cout, cin, 3, 3) and jconv.shape == (3, 3, cin, cout)
+    # Unequal channels, so that swapped transpose-conv fans would show.
+    tcin, tcout = 256, 32
+    tconv = tblocks.ConvTranspose2x2(tcin, tcout, g, scheme).weight.detach()
+    jtconv = np.asarray(jblocks.init_tconv(key, tcin, tcout, scheme)["kernel"])
+    assert tuple(tconv.shape) == (tcin, tcout, 2, 2) and jtconv.shape == (2, 2, tcout, tcin)
+    for w, jw, fans in ((conv, jconv, (9 * cin, 9 * cout)),
+                        (tconv, jtconv, (4 * tcout, 4 * tcin))):
+        bound, std = _scheme_scale(scheme, *fans)
+        assert w.abs().max().item() <= bound * (1 + 1e-6)
+        assert np.abs(jw).max() <= bound * (1 + 1e-6)
+        assert abs(w.abs().max().item() / np.abs(jw).max() - 1) < 0.01
+        assert abs(w.std().item() / jw.std() - 1) < 0.03
+        assert abs(w.std().item() / std - 1) < 0.03
+
+
+@pytest.mark.parametrize("scheme", tblocks.INIT_SCHEMES)
+def test_unet2ds_passes_init_scheme_to_every_kernel(scheme):
+    """Every conv, the head and the transpose convs, as ``unet2d.init``
+    does; biases stay zero and the BNs at gamma 1, beta 0."""
+    nfb = 8
+    model = tunet.UNet2DS(nfb=nfb, init_scheme=scheme,
+                          generator=torch.Generator().manual_seed(2))
+    jparams, _ = junet.init(jax.random.PRNGKey(2), nfb=nfb, init_scheme=scheme)
+    for name, kind, cout in tunet.layer_order(nfb):
+        layer = getattr(model, name)
+        if kind == "bn":
+            assert torch.equal(layer.weight, torch.ones(cout))
+            continue
+        assert torch.equal(layer.bias, torch.zeros(cout))
+        w = layer.weight.detach()
+        if kind == "tconv":
+            fans = (4 * w.shape[1], 4 * w.shape[0])
+        else:
+            k = w.shape[-1]
+            fans = (k * k * w.shape[1], k * k * w.shape[0])
+        bound, std = _scheme_scale(scheme, *fans)
+        assert w.abs().max().item() <= bound * (1 + 1e-6), name
+        jw = np.asarray(jparams[name]["kernel"])
+        assert np.abs(jw).max() <= bound * (1 + 1e-6), name
+        if w.numel() >= 4096:
+            assert abs(w.std().item() / std - 1) < 0.05, name
+            assert abs(jw.std() / std - 1) < 0.05, name
+    if scheme != "he_normal":
+        default = tunet.UNet2DS(nfb=nfb, generator=torch.Generator().manual_seed(2))
+        assert not torch.equal(default.head_conv.weight, model.head_conv.weight)
+
+
+def test_unknown_init_scheme_raises_the_jax_message():
+    with pytest.raises(ValueError) as jexc:
+        jblocks.kernel_init(jax.random.PRNGKey(0), (3, 3, 1, 4), 9, 36, "lecun")
+    with pytest.raises(ValueError) as texc:
+        tblocks.kernel_init_(torch.empty(4, 1, 3, 3), 9, 36, "lecun",
+                             torch.Generator().manual_seed(0))
+    assert str(texc.value) == str(jexc.value) == "unknown init scheme: 'lecun'"
+    with pytest.raises(ValueError, match="unknown init scheme"):
+        tunet.UNet2DS(nfb=4, init_scheme="lecun")
+
+
+# --- capture ----------------------------------------------------------------
+
+CAPTURE_KEYS = ["enc0a", "enc0b", "enc1a", "enc1b", "enc2a", "enc2b", "enc3a",
+                "enc3b", "mida", "midb", "dec3a", "dec3b", "dec2a", "dec2b",
+                "dec1a", "dec1b", "dec0a", "dec0b"]
+
+
+@pytest.mark.parametrize("up_mode", ["transpose", "upsampling"])
+def test_capture_matches_jax(rng, up_mode):
+    """The 18 keys in the order the JAX ``apply`` fills them; each
+    activation within atol 1e-5 (rtol 1e-4) of the JAX one in float32 after
+    NHWC -> NCHW; the probabilities bitwise those without ``capture``."""
+    params, state = _random_net(6, up_mode=up_mode)
+    x = rng.standard_normal((2, 32, 32)).astype(np.float32)
+    jacts: dict = {}
+    ref, _ = junet.apply(params, state, x, precision=HIGHEST, up_mode=up_mode,
+                         capture=jacts)
+    model = tunet.from_jax_params(params, state).eval()
+    acts: dict = {}
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), capture=acts)
+        plain = model(torch.from_numpy(x))
+    assert list(acts) == list(jacts) == CAPTURE_KEYS
+    assert torch.equal(out, plain)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-6)
+    for name in CAPTURE_KEYS:
+        a, ja = acts[name], np.asarray(jacts[name])
+        assert a.dim() == 4 and a.dtype == torch.float32
+        assert tuple(a.shape) == (ja.shape[0], ja.shape[3], ja.shape[1], ja.shape[2])
+        assert (a >= 0).all()  # post-ReLU
+        np.testing.assert_allclose(_nhwc(a), ja, rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+    assert acts["mida"].shape == (2, 64, 2, 2)
+    assert acts["dec0b"].shape == (2, 4, 32, 32)
+
+
+def test_capture_in_training_and_bf16(rng):
+    """``capture`` changes no bit of the training forward either, nor the
+    running statistics; under a compute dtype the tensors are in it."""
+    params, state = _random_net(7)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32)).astype(np.float32))
+    outs, stats = [], []
+    for capture in (None, {}):
+        model = tunet.from_jax_params(params, state, drp=0.0)
+        outs.append(model(x, train=True, capture=capture))
+        stats.append(model.enc1a_bn.running_mean.clone())
+        if capture is not None:
+            assert list(capture) == CAPTURE_KEYS
+            outs[-1].sum().backward()  # the captured tensors are the graph's
+            assert capture["dec0b"].requires_grad
+    assert torch.equal(outs[0], outs[1]) and torch.equal(stats[0], stats[1])
+    acts: dict = {}
+    with torch.no_grad():
+        tunet.from_jax_params(params, state, torch.bfloat16).eval()(x, capture=acts)
+    assert all(a.dtype == torch.bfloat16 for a in acts.values())
+
+
+def test_capture_on_a_folded_net(rng):
+    """A folded net captures too: the fold is exact, so its blocks hold the
+    unfolded net's activations up to float rounding (atol 1e-5), and its
+    output is bitwise its own without ``capture``."""
+    params, state = _random_net(8)
+    model = tunet.from_jax_params(params, state).eval()
+    folded = model.fold()
+    x = torch.from_numpy(rng.standard_normal((1, 32, 32)).astype(np.float32))
+    acts, facts = {}, {}
+    with torch.no_grad():
+        model(x, capture=acts)
+        out = folded(x, capture=facts)
+        assert torch.equal(out, folded(x))
+    assert list(facts) == CAPTURE_KEYS
+    for name in CAPTURE_KEYS:
+        np.testing.assert_allclose(facts[name].numpy(), acts[name].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
