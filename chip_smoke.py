@@ -38,6 +38,10 @@ Phases, one line each, in order:
     bfloat16, batch 20 of 4096-sample windows, margin 4, 2 epochs on 200
     synthetic calcium traces of 30,011 samples; then the train step is
     timed and profiled;
+    then K steps a dispatch: ``trainer.make_multi_step`` as one CUDA graph of
+    4 steps for both nets at the published widths, bit for bit 4 eager steps
+    and near the default path, timed and profiled beside the K=1 step, and
+    one ``fit(preset="perf")`` of each wrapper (``phase_multistep``);
 15. ``UNet1DSegmentation.predict`` of the 200 full-length traces from the
     best checkpoint at batch 32, timed; at float32 (TF32 off) batch 8 and
     batch 32 give the same masks away from the threshold;
@@ -47,7 +51,7 @@ Phases, one line each, in order:
     1024x512x512 int16 movie at nfb=32, bfloat16, slab 64, held bit for bit
     against a plain slab-by-slab loop; a ragged 70x500x470 call at float32
     (TF32 off) against a straightforward per-frame composition through the
-    unfolded net; then frames/s, device time and idle share;
+    unfolded net; then frames/s over two calls, device time and idle share;
 18. the stencil mask summary of 300 neurons on 512x512 on the card, equal
     bit for bit to the CPU's, a subset of the exact walk's, and equal to it
     on separated neurons;
@@ -60,7 +64,9 @@ Phases, one line each, in order:
 20. the multi-device paths over an NCCL group of one rank on the card:
     ``movie_summary_sharded`` of the phase-5 movie bit for bit K1's; one
     UNet2DS and one UNet1D train step at full width with ``mesh=`` against
-    without, from the same weights at drp=0, with both times;
+    without, from the same weights at drp=0, with both times; one meshed
+    4-step CUDA graph of UNet2DS (its collectives captured) bit for bit the
+    unmeshed one;
     ``make_movie_evaluator(mesh=)`` and ``segment_movie(mesh=)`` bit for
     bit the plain ones; and, where the machine has several cards,
     ``deepcalcium_torch/parallel/dryrun.py`` with one rank a card, rank 0
@@ -83,6 +89,7 @@ card's name and power limit, and as the last line ``{"ok": true,
 """
 
 import argparse
+import copy
 import json
 import math
 import shutil
@@ -1360,6 +1367,337 @@ def phase_fit1d(dev, seed, card):
                      "name": name}
 
 
+# --- K steps a dispatch: trainer.make_multi_step as one CUDA graph ----------
+
+K_DISPATCH = 4          # steps a dispatch in the checks and the timing
+K_EMA = 0.99            # the average the 2-D checks carry
+# Steps an epoch of the 2-D perf-preset fit: 20 takes K=4, as 8 steps of
+# the 1-D fit (160 training traces at batch 20) do.
+PERF_STEPS = 20
+# Loss of the graph against the default path over 2 dispatches: see
+# phase_multistep.
+DEFAULT_PATH_RTOL = 2e-2
+
+
+def _k_step_case(kind, dev, seed):
+    """A net at the published width (bf16, its default dropout) from
+    weights drawn from ``seed``, its loss and metrics, and two (K, B, ...)
+    slabs of random batches: UNet2DS at 20 @ 128^2, UNet1D at 20 x 4096.
+    Its forward reads the rate from ``net.drp``."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models.unet1d import UNet1D
+    from deepcalcium_torch.models.unet2d import UNet2DS
+    from deepcalcium_torch.ops import losses as L
+
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "2d":
+        net = UNet2DS(nfb=NFB, compute_dtype=torch.bfloat16, generator=gen)
+        shape = (TRAIN_BATCH, TRAIN_WINDOW, TRAIN_WINDOW)
+        loss_fn, metric_fns = L.binary_crossentropy, None
+    else:
+        net = UNet1D(nfb=NFB, margin=SPIKE_MARGIN, compute_dtype=torch.bfloat16,
+                     generator=gen)
+        shape = (SPIKE_BATCH, SPIKE_WINDOW)
+        loss_fn = functools.partial(L.weighted_binary_crossentropy,
+                                    weightpos=2.0)
+        metric_fns = dict(L.SPIKE_METRICS)
+    rng = np.random.default_rng(seed + 30)
+    slabs = []
+    for _ in range(2):
+        x = rng.standard_normal((K_DISPATCH,) + shape).astype(np.float32)
+        y = (rng.random((K_DISPATCH,) + shape) < 0.1).astype(np.float32)
+        slabs.append((torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)))
+    return net.to(dev), loss_fn, metric_fns, slabs
+
+
+def _train_state(net, opt, ema):
+    """Every tensor a train step changes, by name."""
+    out = {f"param.{n}": p for n, p in net.named_parameters()}
+    out.update({f"buffer.{n}": b for n, b in net.named_buffers()})
+    for n, p in net.named_parameters():
+        out.update({f"adam.{n}.{k}": v for k, v in opt.state[p].items()})
+    if ema is not None:
+        out.update({f"ema.{n}": p for n, p in ema.named_parameters()})
+    return out
+
+
+def _bitwise_diffs(a, b):
+    """Names whose tensors differ by a bit."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k].detach(), b[k].detach())]
+
+
+def phase_multistep(dev, card, seed, fit_ctx, fit_numbers, fit1d_ctx,
+                    fit1d_numbers):
+    """``trainer.make_multi_step`` at K=4 as one CUDA graph, for both nets at
+    the published widths (bf16):
+
+    (a) two dispatches against 8 eager steps of ``make_train_step`` with the
+        same capturable optimizer (``make_capturable_``) from the same start,
+        cuDNN deterministic, at drp=0 and at the net's default dropout from
+        a device generator in the same state: weights, BN buffers, Adam's
+        state, the average (2-D, decay 0.99), the (K,) metrics and the
+        generator's state equal bit for bit; an lr of 0 set between
+        dispatches reaches the graph;
+    (b) the same 8 steps through the default K=1 path (the default Adam):
+        step 1's loss bit for bit (its forward precedes any update), the
+        others within rtol ``DEFAULT_PATH_RTOL``. Capturable Adam forms its
+        bias corrections in float32 on the card where the default forms
+        them in float64 on the host, and divides in another order: its
+        updates differ by a few float32 ulps, so step 2's forward differs
+        from the default's by rounding. Its gradients then differ by
+        rounding too, and for the conv biases that feed a BN the gradient
+        is nothing but rounding: Adam at eps 1e-8 moves each of them by up
+        to lr (2e-3) in a direction that rounding sets
+        (``tests/test_torch_train.py``). A shift that size moves bf16
+        activations of order 1 by about an ulp (2^-8), so from step 2 on
+        the losses part at bf16's precision and grow apart with the steps
+        (on an NVIDIA H100 80GB HBM3 at 700 W: up to 1e-3 at step 2 and
+        8e-3 at step 8). 2e-2
+        allows five bf16 ulps; a skipped, repeated or wrong step moves the
+        loss by more, as it falls 5-13% a step over these 8;
+    (c) the ms a step of the graphed dispatch (CUDA events over 5
+        dispatches after warm-up, divided by 4), its device ms and the card's
+        idle share from ``torch.profiler`` over one dispatch, the capture's
+        seconds (with the first replay) and the
+        peak memory of the first dispatch beside the K=1 step's;
+    (d) ``fit(preset="perf")`` of each wrapper, 2 epochs: the 2-D fit on
+        phase 7's movies (summaries from K1, whose launches it counts), the
+        1-D on phase 14's traces; the K each chose and the epoch wall s.
+    """
+    import gc
+
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models import unet_1d_segmentation as seg
+    from deepcalcium_torch.models import unet_2d_summary as summ
+    from deepcalcium_torch.models.unet2d import UNet2DS
+    from deepcalcium_torch.models.unet1d import UNet1D
+    from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
+    from deepcalcium_torch.train import trainer as T
+    from deepcalcium_torch.train.checkpoints import read_checkpoint
+
+    t0 = time.perf_counter()
+    K = K_DISPATCH
+    numbers, parts = {}, {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for kind in ("2d", "1d"):
+            base, loss_fn, metric_fns, slabs = _k_step_case(kind, dev, seed)
+            for drp in (0.0, None):
+                t2 = time.perf_counter()
+                tag = f"{kind}.{'drp0' if drp == 0.0 else 'dropout'}"
+                ema_decay = K_EMA if kind == "2d" else None
+                # Graph, eager with the capturable Adam, default path: the
+                # same weights (and the same rate) three times.
+                nets = [copy.deepcopy(base) for _ in range(3)]
+                for n in nets:
+                    n.drp = base.drp if drp is None else drp
+                emas = [copy.deepcopy(n) if ema_decay else None for n in nets]
+                gens = [torch.Generator(device=dev).manual_seed(seed + 7)
+                        for _ in nets]
+                opts = [T.make_optimizer(n) for n in nets]
+                # The graph.
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                multi = T.make_multi_step(nets[0], loss_fn, opts[0], K,
+                                          metric_fns, ema=emas[0],
+                                          ema_decay=ema_decay)
+                t1 = time.perf_counter()
+                rows_a = [multi(*slabs[0], gens[0])]
+                torch.cuda.synchronize()
+                capture_s = time.perf_counter() - t1
+                peak_k = (torch.cuda.max_memory_allocated() - held) / 2**30
+                rows_a.append(multi(*slabs[1], gens[0]))
+                keys = sorted(rows_a[0])
+                rows_a = T.metric_rows(rows_a, keys)
+                # Eager steps with the same capturable optimizer.
+                T.make_capturable_(opts[1])
+                eager = T.make_train_step(nets[1], loss_fn, opts[1], metric_fns)
+                # The default path.
+                plain = T.make_train_step(nets[2], loss_fn, opts[2], metric_fns)
+                rows_b, rows_c, peak_1 = [], [], None
+                for xs, ys in slabs:
+                    for k in range(K):
+                        rows_b.append(eager(xs[k], ys[k], gens[1]))
+                        if ema_decay:
+                            T.ema_update(emas[1].parameters(),
+                                         nets[1].parameters(), ema_decay)
+                        if peak_1 is None:
+                            torch.cuda.synchronize()
+                            held = torch.cuda.memory_allocated()
+                            torch.cuda.reset_peak_memory_stats()
+                        rows_c.append(plain(xs[k], ys[k], gens[2]))
+                        if peak_1 is None:
+                            torch.cuda.synchronize()
+                            peak_1 = (torch.cuda.max_memory_allocated()
+                                      - held) / 2**30
+                rows_b = T.metric_rows(rows_b, keys)
+                rows_c = T.metric_rows(rows_c, keys)
+                state_a = _train_state(nets[0], opts[0], emas[0])
+                state_b = _train_state(nets[1], opts[1], emas[1])
+                diffs = _bitwise_diffs(state_a, state_b)
+                if not torch.equal(rows_a, rows_b):
+                    diffs.append("metrics")
+                if not torch.equal(gens[0].get_state(), gens[1].get_state()):
+                    diffs.append("generator")
+                if diffs:
+                    raise AssertionError(f"{tag}: the graph of {K} steps "
+                                         f"differs from eager steps in {diffs}")
+                loss_a = rows_a[:, keys.index("loss")].cpu().numpy()
+                loss_c = rows_c[:, keys.index("loss")].cpu().numpy()
+                rels = np.abs(loss_a - loss_c) / np.abs(loss_c)
+                rel = float(rels.max())
+                if not (loss_a[0] == loss_c[0] and rel <= DEFAULT_PATH_RTOL
+                        and np.isfinite(loss_a).all()):
+                    raise AssertionError(f"{tag}: graph losses {loss_a} against "
+                                         f"the default path's {loss_c}")
+                # An lr set between dispatches reaches the graph.
+                T.set_lr(opts[0], 0.0)
+                before = {k: v.clone() for k, v in state_a.items()
+                          if k.startswith("param.")}
+                multi(*slabs[0], gens[0])
+                if _bitwise_diffs(before, state_a):
+                    raise AssertionError(f"{tag}: lr 0 moved a weight")
+                T.set_lr(opts[0], 2e-3)
+                rec = {"bitwise": True, "default_path_loss_rtol": rel,
+                       "default_path_loss_rel_per_step": rels.tolist(),
+                       "capture_s": capture_s, "peak_gib_k4": peak_k,
+                       "peak_gib_k1": peak_1}
+                if drp is None:
+                    # (c) the timing, at the net's default dropout.
+                    ms = _timed_ms(lambda: multi(*slabs[0], gens[0]), 5) / K
+                    # One dispatch: its 6,000-8,000 kernel records take
+                    # the profiler seconds to sort.
+                    dev_ms, kernels, top = _device_time_per_call(
+                        lambda: multi(*slabs[0], gens[0]), 1)
+                    rec.update(step_ms=ms, device_ms=dev_ms / K,
+                               kernels=kernels / K,
+                               idle=1.0 - dev_ms / K / ms if kernels else None,
+                               top=top)
+                numbers[tag] = rec
+                del multi, eager, plain, nets, emas, opts, gens
+                del state_a, state_b, before
+                gc.collect()
+                torch.cuda.empty_cache()
+                parts[tag] = round(time.perf_counter() - t2, 2)
+            del base, slabs
+    finally:
+        torch.backends.cudnn.deterministic = False
+    checks_s = time.perf_counter() - t0
+
+    # (d) fit(preset="perf") of each wrapper.
+    movies, truths = fit_ctx["movies"], fit_ctx["truths"]
+
+    def series_summary(name):
+        mean, _ = movie_summary_cuda(movies[name])
+        return ((mean - mean.mean()) / mean.std(correction=0)).cpu().numpy()
+
+    cpdir = REPO / "build" / "chip_smoke_fit_perf"
+    shutil.rmtree(cpdir, ignore_errors=True)
+    try:
+        wrapper = summ.UNet2DSummary(
+            cpdir=str(cpdir / "2d"), dataset_name_func=lambda name: name,
+            series_summary_func=series_summary,
+            mask_summary_func=truths.__getitem__,
+            net_func=lambda **kw: UNet2DS(nfb=NFB, **kw),
+            compute_dtype=torch.bfloat16, device=dev)
+        movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+        t1 = time.perf_counter()
+        with _LogArgs(summ.__name__) as records:
+            history, best = wrapper.fit(
+                list(movies), shape_trn=(TRAIN_WINDOW, TRAIN_WINDOW),
+                shape_val=(WINDOW, WINDOW), batch_size_trn=TRAIN_BATCH,
+                nb_steps_trn=PERF_STEPS, nb_epochs=FIT_EPOCHS, seed=seed,
+                preset="perf")
+        fit_s = parts["fit_perf"] = time.perf_counter() - t1
+        k1_launches = movie_summary_cuda.launches + movie_fold_cuda.launches
+        (k2,) = [r.args[0] for r in records
+                 if r.getMessage().startswith("preset='perf'")]
+        ckpt = read_checkpoint(best)
+        if (k2 != K or k1_launches < 1 or not np.isfinite(history["loss"]).all()
+                or int(ckpt["opt_state"]["count"])
+                != PERF_STEPS * (int(ckpt["meta"]["epoch"]) + 1)):
+            raise AssertionError(f"fit(preset='perf'): K {k2}, K1 launches "
+                                 f"{k1_launches}, losses {history['loss']}, "
+                                 f"Adam count {ckpt['opt_state']['count']}")
+        numbers["fit_perf"] = {"k": k2, "epoch_seconds": history["epoch_seconds"],
+                               "loss_per_epoch": history["loss"],
+                               "fit_seconds": fit_s, "k1_launches": k1_launches}
+
+        traces, spikes = fit1d_ctx["traces"], fit1d_ctx["spikes"]
+        wrapper = seg.UNet1DSegmentation(
+            cpdir=str(cpdir / "1d"), dataset_attrs_func=lambda n: {"name": n},
+            dataset_traces_func=lambda n: traces,
+            dataset_spikes_func=lambda n: spikes,
+            net_func=lambda **kw: UNet1D(nfb=NFB, **kw),
+            compute_dtype=torch.bfloat16, device=dev)
+        t1 = time.perf_counter()
+        with _LogArgs(seg.__name__) as records:
+            mt, mv, best = wrapper.fit(
+                [fit1d_ctx["name"]], shape=(SPIKE_WINDOW,),
+                error_margin=SPIKE_MARGIN, batch=SPIKE_BATCH,
+                nb_epochs=SPIKE_EPOCHS, seed=seed, preset="perf")
+        fit1d_s = parts["fit1d_perf"] = time.perf_counter() - t1
+        (k1,) = [r.args[0] for r in records
+                 if r.getMessage().startswith(
+                     "preset='perf': steps_per_dispatch=")]
+        epochs = [r for r in records if r.getMessage().startswith("epoch ")]
+        steps = -(-int(SPIKE_TRACES * 0.8) // SPIKE_BATCH)
+        ckpt = read_checkpoint(best)
+        if (k1 != K or len(epochs) != SPIKE_EPOCHS
+                or not all(np.isfinite(v) for v in mt.values())
+                or int(ckpt["opt_state"]["count"])
+                != steps * (int(ckpt["meta"]["epoch"]) + 1)):
+            raise AssertionError(f"spike fit(preset='perf'): K {k1}, {mt}")
+        numbers["fit1d_perf"] = {"k": k1, "epoch_seconds": [
+            float(r.args[-1]) for r in epochs], "fit_seconds": fit1d_s,
+            "val_F2": mv["F2"]}
+    finally:
+        shutil.rmtree(cpdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    numbers.update(seconds=seconds, checks_seconds=checks_s,
+                   part_seconds=parts)
+    for kind, k1n, key in (("2d", fit_numbers, "train_step"),
+                           ("1d", fit1d_numbers, "train1d_step")):
+        r = numbers[f"{kind}.dropout"]
+        numbers[f"{key}_k4_ms"] = r["step_ms"]
+        k1_ms = k1n[f"{key}_ms"]
+        k1_dev = k1n[f"{key}_device_ms"]
+        idle = ("not measured" if r["idle"] is None else
+                f"{r['idle']:.1%}")
+        print(f"{key}_k4_ms {r['step_ms']:.3f} (one CUDA graph of {K} steps: "
+              f"{r['device_ms']:.3f} device ms and {r['kernels']:.0f} "
+              f"kernels a step, card idle {idle}; capture "
+              f"{r['capture_s']:.2f} s; peak {r['peak_gib_k4']:.2f} GiB for "
+              f"the first dispatch) against {key}_ms {k1_ms:.3f} "
+              f"({k1_dev:.3f} device ms; peak {r['peak_gib_k1']:.2f} GiB a "
+              f"step) in this run; {card}", flush=True)
+    print(f"multi-step: graph of {K} steps bitwise {K} eager steps (weights, "
+          f"BN buffers, Adam, EMA, metrics, generator) for "
+          + ", ".join(k for k in numbers if "." in k)
+          + "; against the default path, loss within "
+          + ", ".join(f"{numbers[k]['default_path_loss_rtol']:.2e}"
+                      for k in numbers if "." in k)
+          + f" (rtol {DEFAULT_PATH_RTOL}); lr changes reach the graph; "
+          f"fit(preset='perf') chose K={numbers['fit_perf']['k']} (2-D, "
+          f"epoch wall {[round(v, 2) for v in numbers['fit_perf']['epoch_seconds']]}"
+          f" s, K1 launches {numbers['fit_perf']['k1_launches']}) and "
+          f"K={numbers['fit1d_perf']['k']} (1-D, epoch wall "
+          f"{[round(v, 3) for v in numbers['fit1d_perf']['epoch_seconds']]} s);"
+          f" {seconds:.1f} s ({', '.join(f'{k} {v:.2f}' for k, v in parts.items())});"
+          f" {card}", flush=True)
+    return numbers
+
+
 def phase_predict1d(dev, fit_ctx, card, band=1e-4):
     """``UNet1DSegmentation.predict`` of the full-length traces from the
     best checkpoint, bf16 at batch 32, timed; then float32 (TF32 off) at
@@ -1539,6 +1877,8 @@ def phase_glm(dev, fit_ctx, card):
 # --- Per-frame segmentation, the stencil, the command line ------------------
 
 SEG_FRAMES, SEG_SLAB = 1024, 64
+# Timed calls of the 1024-frame movie; two leave time for the K-step phase.
+SEG_TIMED_CALLS = 2
 SEG_RAGGED = (70, 500, 470)   # T % slab != 0; H, W % 16 != 0
 
 
@@ -1630,7 +1970,7 @@ def phase_segment(dev, main, card):
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     runs = []
-    for _ in range(3):
+    for _ in range(SEG_TIMED_CALLS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         segment_movie(params, state, host, slab=SEG_SLAB)
@@ -1961,6 +2301,7 @@ def phase_parallel(dev, main, card, seed):
     from deepcalcium_torch.parallel import dryrun
     from deepcalcium_torch.parallel.distributed import (_free_port, initialize,
                                                         pod_mesh, shutdown)
+    from deepcalcium_torch.train import trainer
     from deepcalcium_torch.train.evaluate import make_movie_evaluator
 
     t0 = time.perf_counter()
@@ -2053,6 +2394,31 @@ def phase_parallel(dev, main, card, seed):
             torch.backends.cudnn.deterministic = True
             steps[kind].update(plain_ms=[ms[0], ms[3]], mesh_ms=[ms[1], ms[2]])
             t1 = lap(f"{kind}_timing", t1)
+
+        # One K-step dispatch of UNet2DS with the mesh (its collectives
+        # inside the CUDA graph) against without, from the same weights at
+        # drp=0: bit for bit.
+        runs = []
+        base, loss_fn, metric_fns, slabs = _k_step_case("2d", dev, seed)
+        base.drp = 0.0
+        for m in (mesh, None):
+            net = copy.deepcopy(base)
+            opt = trainer.make_optimizer(net)
+            multi = trainer.make_multi_step(net, loss_fn, opt, K_DISPATCH,
+                                            metric_fns, mesh=m)
+            rows = multi(*slabs[0])
+            keys = sorted(rows)
+            runs.append((_train_state(net, opt, None),
+                         trainer.metric_rows([rows], keys)))
+        diffs = _bitwise_diffs(runs[0][0], runs[1][0])
+        if not torch.equal(runs[0][1], runs[1][1]):
+            diffs.append("metrics")
+        if diffs:
+            raise AssertionError(f"the meshed {K_DISPATCH}-step graph differs "
+                                 f"from the unmeshed one in {diffs}")
+        multi_loss = runs[0][1][:, keys.index("loss")].tolist()
+        del runs, multi, net, opt, base, slabs
+        t1 = lap("multi_step", t1)
     finally:
         torch.backends.cudnn.deterministic = False
 
@@ -2103,6 +2469,8 @@ def phase_parallel(dev, main, card, seed):
               f"{v['worst_relative']:.3g} of the largest entry; "
               f"{min(v['plain_ms']):.2f} ms plain, {min(v['mesh_ms']):.2f} "
               f"ms meshed" for k, v in steps.items())
+          + f"; a meshed {K_DISPATCH}-step graph of UNet2DS bitwise the "
+          f"unmeshed one (losses {[round(v, 5) for v in multi_loss]})"
           + (f"; multi-card dry run on {cards} cards: rank 0 within "
              f"tolerance of one process" if multi is not None else
              "; one card: the multi-card dry run was not possible and did "
@@ -2110,6 +2478,7 @@ def phase_parallel(dev, main, card, seed):
     return launches, {"seconds": seconds, "nccl_setup_s": setup_s,
                       "part_seconds": parts,
                       "fold_launches": launches, "steps": steps,
+                      "multi_step_losses": multi_loss,
                       "cards": cards, "multi_card": multi}
 
 
@@ -2423,6 +2792,8 @@ def main(argv=None):
     golden1d_err = timed("golden1d", phase_golden1d, dev)
     golden1d_errs = timed("train_golden1d", phase_train_golden1d, dev)
     fit1d, fit1d_ctx = timed("fit1d", phase_fit1d, dev, args.seed, card)
+    multistep = timed("multistep", phase_multistep, dev, card, args.seed,
+                      fit_ctx, fit, fit1d_ctx, fit1d)
     predict1d = timed("predict1d", phase_predict1d, dev, fit1d_ctx, card)
     glm = timed("glm", phase_glm, dev, fit1d_ctx, card)
     segment = timed("segment", phase_segment, dev, main_ctx, card)
@@ -2443,6 +2814,7 @@ def main(argv=None):
     by_path = {"evaluate": eval_launches, "fit": fit_launches,
                "stream": stream_launches, "tiled": tiled_launches,
                "fit1d": fit1d["k1_launches"],
+               "fit_perf": multistep["fit_perf"]["k1_launches"],
                "predict1d": predict1d["k1_launches"],
                "glm": glm["k1_launches"],
                "segment": segment["k1_launches"], "cli": cli_launches,
@@ -2463,6 +2835,7 @@ def main(argv=None):
         "fit": fit, "stream": stream, "tiled": tiled, "predict": predict,
         "golden1d_max_abs_err": golden1d_err,
         "train_golden1d_max_abs_err": golden1d_errs, "fit1d": fit1d,
+        "multistep": multistep,
         "predict1d": predict1d, "glm": glm, "segment": segment,
         "stencil": stencil, "cli": cli, "parallel": parallel, "examples": examples,
         "card": card,

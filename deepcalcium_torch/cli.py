@@ -375,9 +375,8 @@ def build_parser():
     p.add_argument("--lr-schedule", default="plateau",
                    choices=["plateau", "cosine"])
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="training steps folded into one device dispatch in "
-                        "the JAX package (must divide --steps); "
-                        + _NO_EFFECT)
+                   help="training steps run as one dispatch, one CUDA graph "
+                        "of K steps on the card (must divide --steps)")
     p.add_argument("--fast-train", default="auto",
                    choices=["auto", "on", "off"],
                    help="the JAX package's lane-packed gradient step; "
@@ -396,8 +395,10 @@ def build_parser():
                    help="rematerialize conv blocks in the backward pass "
                         "(default: on for window >= 256)")
     p.add_argument("--preset", default=None, choices=["parity", "perf"],
-                   help="the JAX package's recipe bundle of --prng-impl and "
-                        "--steps-per-dispatch; " + _NO_EFFECT)
+                   help="perf: the first of 4, 2, 1 steps per dispatch that "
+                        "divides --steps (the JAX package's rbg PRNG, its "
+                        "other lever, has no counterpart); parity: the "
+                        "defaults")
     _add_device_flag(p)
     p.set_defaults(func=cmd_train)
 
@@ -469,8 +470,9 @@ def build_parser():
     p.add_argument("--val_type", default="random_split",
                    choices=["random_split", "cross_validate"])
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="training steps folded into one device dispatch in "
-                        "the JAX package (unet1d only); " + _NO_EFFECT)
+                   help="training steps run as one dispatch, one CUDA graph "
+                        "of K steps on the card (unet1d only; must divide "
+                        "the steps of an epoch)")
     p.add_argument("--weight-decay", type=float, default=0.0,
                    help="AdamW decoupled weight decay (unet1d only)")
     p.add_argument("--prng-impl", default="threefry2x32",
@@ -478,8 +480,10 @@ def build_parser():
                    help="the JAX package's dropout PRNG (unet1d only); "
                         + _NO_EFFECT)
     p.add_argument("--preset", default=None, choices=["parity", "perf"],
-                   help="the JAX package's recipe bundle (unet1d only) of "
-                        "--prng-impl and --steps-per-dispatch; " + _NO_EFFECT)
+                   help="perf (unet1d only): for each split the first of 4, "
+                        "2, 1 steps per dispatch that divides its steps (the "
+                        "JAX package's rbg PRNG has no counterpart); parity: "
+                        "the defaults")
     _add_device_flag(p)
     p.set_defaults(func=cmd_spikes_train)
 

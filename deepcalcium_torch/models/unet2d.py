@@ -149,8 +149,11 @@ class UNet2DS(nn.Module):
         if not train:
             return torch.relu(bn(conv(h, self.compute_dtype)))
         if self.remat:
+            # The block draws no random numbers: no RNG state to keep
+            # (reading it would also break a CUDA graph's capture).
             y, mean, var = checkpoint(self._cbr_train, conv, bn, h, mesh,
-                                      use_reentrant=False)
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
             y, mean, var = self._cbr_train(conv, bn, h, mesh)
         # Outside the checkpointed block, so the recompute in the backward

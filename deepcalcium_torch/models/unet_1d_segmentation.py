@@ -36,7 +36,8 @@ from deepcalcium_torch.train import trainer as T
 from deepcalcium_torch.train.callbacks import CSVMetricsLogger, plot_metrics_grid
 from deepcalcium_torch.train.checkpoints import read_checkpoint, save_checkpoint
 from deepcalcium_torch.train.evaluate import _run_batched
-from deepcalcium_torch.train.sampler import Prefetcher, make_put_fn
+from deepcalcium_torch.train.sampler import (Prefetcher, make_put_fn,
+                                             stack_batches)
 from deepcalcium_torch.utils.config import checkpoints_dir
 from deepcalcium_torch.utils.device import require_cuda
 
@@ -163,9 +164,15 @@ class UNet1DSegmentation:
         checkpointed. Every knob is checked before any dataset is read.
         ``weight_decay`` > 0 trains with AdamW on the conv kernels.
 
-        ``steps_per_dispatch``, ``prng_impl`` and ``preset`` select TPU
-        dispatch and PRNG levers of the JAX package; they are checked as
-        there and logged, and change nothing here.
+        ``steps_per_dispatch`` (K): run K train steps per dispatch
+        (``train.trainer.make_multi_step``; on the card one CUDA graph
+        replay of K steps), as in the 2-D ``fit``. Must divide the
+        per-epoch step count ``ceil(n_train_traces / batch)``.
+        ``preset="perf"`` takes, for each split, the first of (4, 2, 1)
+        that divides that split's step count, as the JAX package does
+        (cross-validation folds may differ); its ``rbg`` PRNG has no
+        counterpart: dropout stays the torch Philox stream. ``prng_impl``
+        is checked and logged, and changes nothing here.
 
         ``mesh``: data-parallel training over the mesh's ranks
         (``train.trainer.make_train_step``): every rank draws the same
@@ -204,12 +211,13 @@ class UNet1DSegmentation:
         if check_mesh(mesh) is not None and batch % mesh.size:
             raise ValueError(f"batch={batch} must divide by the mesh size "
                              f"{mesh.size} (multi-device training)")
-        if kdisp != 1 or prng_impl != "threefry2x32" or preset is not None:
-            logger.info(
-                "steps_per_dispatch=%s, prng_impl=%r, preset=%r: TPU "
-                "dispatch and PRNG levers of the JAX package; no-ops here "
-                "(one step per launch, the torch Philox stream)",
-                "auto" if kdisp is None else kdisp, prng_impl, preset)
+        if preset == "perf":
+            logger.info("preset='perf': steps_per_dispatch chosen per split; "
+                        "dropout stays the torch Philox stream (the JAX "
+                        "package's 'rbg' has no counterpart here)")
+        if prng_impl != "threefry2x32":
+            logger.info("prng_impl=%r: the JAX package's PRNG lever; a no-op "
+                        "here (the torch Philox stream)", prng_impl)
 
         traces = [t for p in dataset_paths for t in self.dataset_traces_func(p)]
         spikes = [s for p in dataset_paths for s in self.dataset_spikes_func(p)]
@@ -283,7 +291,13 @@ class UNet1DSegmentation:
         tr_val = [traces[i] for i in idxs_val]
         sp_val = [spikes[i] for i in idxs_val]
         steps_trn = int(ceil(len(tr_trn) / batch))
-        if kdisp is not None and steps_trn % kdisp != 0:
+        if kdisp is None:
+            # preset='perf': per split, since folds may differ in size.
+            kdisp = next(k for k in (4, 2, 1) if steps_trn % k == 0)
+            logging.getLogger(__name__).info(
+                "preset='perf': steps_per_dispatch=%d (steps_trn=%d)",
+                kdisp, steps_trn)
+        if steps_trn % kdisp != 0:
             raise ValueError(
                 f"steps_per_dispatch={kdisp} must divide the per-epoch step "
                 f"count ceil(n_train_traces/batch)={steps_trn}")
@@ -291,13 +305,19 @@ class UNet1DSegmentation:
         net = self._new_net(seed, margin)
         optimizer = T.make_optimizer(net, learning_rate,
                                      weight_decay=weight_decay)
-        step = T.make_train_step(net, loss_fn, optimizer, metric_fns, mesh)
+        if kdisp > 1:
+            step = T.make_multi_step(net, loss_fn, optimizer, kdisp,
+                                     metric_fns, mesh=mesh)
+        else:
+            step = T.make_train_step(net, loss_fn, optimizer, metric_fns, mesh)
         fwd = T.make_eval_forward(net, mesh)
         # Validation batches are split over the mesh's ranks and gathered.
         eval_fwd = lambda x: _run_batched(fwd, x, mesh=mesh)
 
         gen = self._batch_gen(tr_trn, sp_trn, shape, batch, margin, seed)
-        prefetch = Prefetcher(gen, put_fn=make_put_fn(self.device, mesh))
+        if kdisp > 1:
+            gen = stack_batches(gen, kdisp)  # one (K, B, T) slab a dispatch
+        prefetch = Prefetcher(gen, put_fn=make_put_fn(self.device, mesh, kdisp))
         # Fixed validation batch: two windows from every validation trace.
         x_val, y_val = next(self._batch_gen(
             tr_val, sp_val, shape, len(tr_val) * 2, margin, seed + 1))
@@ -314,7 +334,8 @@ class UNet1DSegmentation:
         nb_plot = min(8, x_val.shape[0])
         try:
             best_path = self._epoch_loop(
-                nb_epochs, steps_trn, step, eval_fwd, prefetch, metric_fns,
+                nb_epochs, steps_trn // kdisp, step, eval_fwd, prefetch,
+                metric_fns,
                 x_val, y_val, nb_plot, csvlog, tic, dropout_gen, net,
                 optimizer)
         finally:
@@ -343,7 +364,7 @@ class UNet1DSegmentation:
               self._metrics(metric_fns, yv, out_val).items()}
         return mt, mv, best_path
 
-    def _epoch_loop(self, nb_epochs, steps_trn, step, eval_fwd, prefetch,
+    def _epoch_loop(self, nb_epochs, dispatches, step, eval_fwd, prefetch,
                     metric_fns, x_val, y_val, nb_plot, csvlog, tic,
                     dropout_gen, net, optimizer):
         logger = logging.getLogger(__name__)
@@ -356,14 +377,13 @@ class UNet1DSegmentation:
             # Metrics stay on the device; one sync per epoch, keys in sorted
             # order, as the JAX package's device_get of a dict returns them.
             step_metrics: list[dict] = []
-            for _ in range(steps_trn):
+            for _ in range(dispatches):
                 xb, yb = next(prefetch)
                 step_metrics.append(step(xb, yb, dropout_gen))
             keys = sorted(step_metrics[0])
             probs = eval_fwd(xv)
             val = self._metrics(metric_fns, yv, probs)
-            trn = torch.stack([torch.stack([m[k] for k in keys])
-                               for m in step_metrics])
+            trn = T.metric_rows(step_metrics, keys)  # a row a step
             fetched = torch.cat([trn.flatten(), torch.stack(list(val.values()))]
                                 ).cpu().numpy()
             trn_h = fetched[:trn.numel()].reshape(trn.shape)

@@ -45,7 +45,7 @@ from deepcalcium_torch.train.evaluate import (evaluate_movie_streaming,
                                               predict_batched, predict_tiled,
                                               predict_tta, tile_grid)
 from deepcalcium_torch.train.sampler import (Prefetcher, WindowSampler,
-                                             make_put_fn)
+                                             make_put_fn, stack_batches)
 from deepcalcium_torch.utils.config import checkpoints_dir
 from deepcalcium_torch.utils.device import require_cuda
 from deepcalcium_torch.utils.profiling import trace
@@ -217,9 +217,18 @@ class UNet2DSummary:
         count and learning rate resume too from a ``.ckpt`` (a Keras file
         carries no optimizer state that is translated: Adam starts fresh).
 
-        ``steps_per_dispatch``, ``prng_impl``, ``preset`` and ``fast_train``
-        select TPU dispatch, PRNG and lane-packing levers of the JAX package;
-        they are checked and logged, and change nothing here.
+        ``steps_per_dispatch`` (K): run K train steps per dispatch
+        (``train.trainer.make_multi_step``) on (K, B, ...) slabs that the
+        prefetch thread stacks: on the card one CUDA graph replay of K
+        steps, on the CPU a loop. Must divide ``nb_steps_trn``. The steps,
+        the per-step EMA and the per-step metrics are those of K=1.
+        ``preset="perf"`` takes the first of (4, 2, 1) that divides
+        ``nb_steps_trn``, as the JAX package does; ``None``/``"parity"``
+        keep ``steps_per_dispatch``. The preset's other lever, the JAX
+        package's ``rbg`` PRNG, has no counterpart: dropout stays the torch
+        Philox stream. ``prng_impl`` and ``fast_train`` (the JAX package's
+        PRNG and lane-packing levers) are checked and logged, and change
+        nothing here.
 
         ``mesh``: data-parallel training over the mesh's ranks
         (``train.trainer.make_train_step``). Every rank runs the same
@@ -247,6 +256,9 @@ class UNet2DSummary:
         if preset not in (None, "parity", "perf"):
             raise ValueError(f"preset={preset!r}: expected None, 'parity' "
                              f"or 'perf'")
+        if preset == "perf":
+            steps_per_dispatch = next(
+                k for k in (4, 2, 1) if nb_steps_trn % k == 0)
         kdisp = int(steps_per_dispatch)
         if kdisp < 1 or nb_steps_trn % kdisp != 0:
             raise ValueError(
@@ -264,14 +276,18 @@ class UNet2DSummary:
             raise ValueError(f"batch_size_trn={batch_size_trn} must divide "
                              f"by the mesh size {mesh.size}")
         writes = mesh is None or mesh.rank == 0
-        if (kdisp != 1 or prng_impl != "threefry2x32" or preset is not None
-                or fast_train != "auto"):
+        if preset == "perf":
             logger.info(
-                "steps_per_dispatch=%d, prng_impl=%r, preset=%r, "
-                "fast_train=%r: TPU dispatch, PRNG and lane-packing levers "
-                "of the JAX package; no-ops here (one step per launch, the "
-                "torch Philox stream, the plain forward)",
-                kdisp, prng_impl, preset, fast_train)
+                "preset='perf': steps_per_dispatch=%d (%s); dropout stays "
+                "the torch Philox stream (the JAX package's 'rbg' has no "
+                "counterpart here)", kdisp,
+                "one CUDA graph of K steps" if self.device.type == "cuda"
+                else "K steps a call")
+        if prng_impl != "threefry2x32" or fast_train != "auto":
+            logger.info(
+                "prng_impl=%r, fast_train=%r: PRNG and lane-packing levers "
+                "of the JAX package; no-ops here (the torch Philox stream, "
+                "the plain forward)", prng_impl, fast_train)
         loss_fn = L.LOSSES[loss] if isinstance(loss, str) else loss
         if model_path:
             model_path = self._resolve(model_path)
@@ -314,12 +330,15 @@ class UNet2DSummary:
                                      weight_decay=weight_decay)
         if proceed and opt_state:
             T.load_optax_state_(net, optimizer, opt_state)
-        step = T.make_train_step(net, loss_fn, optimizer, mesh=mesh)
 
         sampler = WindowSampler(S, M, names, yctrn, shape_trn,
                                 nb_max_augment=nb_max_augment, seed=seed)
-        prefetch = Prefetcher(sampler.batches(batch_size_trn),
-                              put_fn=make_put_fn(self.device, mesh))
+        batches = sampler.batches(batch_size_trn)
+        if kdisp > 1:
+            # The producer thread stacks K batches into one slab a dispatch.
+            batches = stack_batches(batches, kdisp)
+        prefetch = Prefetcher(batches,
+                              put_fn=make_put_fn(self.device, mesh, kdisp))
 
         tic = int(time.time())
         if mesh is not None:
@@ -351,6 +370,14 @@ class UNet2DSummary:
                     "steps, or expect near-zero validation metrics.",
                     ema_decay, nb_steps_trn * nb_epochs, 100 * w0,
                     0.05 ** (1.0 / max(1, nb_steps_trn * nb_epochs)))
+        if kdisp > 1:
+            # The average rides inside the K steps, as in the JAX scan.
+            step = T.make_multi_step(
+                net, loss_fn, optimizer, kdisp,
+                ema=eval_net if ema_decay else None,
+                ema_decay=ema_decay or None, mesh=mesh)
+        else:
+            step = T.make_train_step(net, loss_fn, optimizer, mesh=mesh)
         eval_fwd = T.make_eval_forward(eval_net, mesh)
         # Profile the first epoch after cuDNN's first calls.
         profile_epoch = 1 if nb_epochs > 1 else 0
@@ -361,17 +388,16 @@ class UNet2DSummary:
                 # Metrics stay on the device until the epoch ends.
                 step_metrics: list[dict] = []
                 with trace(profile_dir if epoch == profile_epoch else None):
-                    for _ in range(nb_steps_trn):
+                    for _ in range(nb_steps_trn // kdisp):
                         sb, mb = next(prefetch)
                         step_metrics.append(step(sb, mb, dropout_gen))
-                        if ema_decay:
+                        if ema_decay and kdisp == 1:
                             T.ema_update(eval_net.parameters(),
                                          net.parameters(), ema_decay)
-                # One sync per epoch; keys in sorted order, as the JAX
-                # package's device_get of a dict returns them.
+                # One sync per epoch, one row a step; keys in sorted order,
+                # as the JAX package's device_get of a dict returns them.
                 keys = sorted(step_metrics[0])
-                fetched = torch.stack([torch.stack([m[k] for k in keys])
-                                       for m in step_metrics]).cpu().numpy()
+                fetched = T.metric_rows(step_metrics, keys).cpu().numpy()
                 agg: dict[str, float] = {
                     k: float(np.mean(fetched[:, i])) for i, k in enumerate(keys)}
 

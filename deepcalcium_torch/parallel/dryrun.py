@@ -11,12 +11,14 @@ and collects their files.
 
 On nfb=4 nets, 32x32 windows and traces of 64 samples it runs the UNet2DS
 and UNet1D train steps (drp=0, so that one process is reproduced), a second
-2-D step fed through ``global_batch_from_local``, the three losses that are
-not linear in their sums, the sharded summary at even and ragged T and at
-T = 1, ``_run_batched``, ``predict_tta``, the movie evaluator,
-``segment_movie``, and two short epochs of both wrappers' ``fit`` (rank 0
-alone writes the checkpoints) with the spike ``predict``. The lane-packed paths and the K-step scan of the JAX
-dry run are not ported, and so are not here.
+2-D step fed through ``global_batch_from_local``, two UNet2DS steps in one
+``make_multi_step`` call beside the same two through ``make_train_step``,
+the three losses that are not linear in their sums, the sharded summary at
+even and ragged T and at T = 1, ``_run_batched``, ``predict_tta``, the
+movie evaluator, ``segment_movie``, and two short epochs of both wrappers'
+``fit`` (rank 0 alone writes the checkpoints) with the spike ``predict``.
+The lane-packed paths of the JAX dry run are not ported, and so are not
+here.
 
 Each rank writes its losses, gradients, buffers, weights and outputs to its
 ``--out`` file (an ``.npz``). :func:`dryrun_multichip` with ``mesh=None``
@@ -155,6 +157,23 @@ def dryrun_multichip(mesh=None, device=None, workdir=None) -> dict:
     met = step1(dev["x1"], dev["y1"])
     out.update({f"u1d.metric.{k}": _np(v) for k, v in met.items()})
     _record_net(out, "u1d", net1)
+
+    # Two 2-D steps in one make_multi_step call, and the same two through
+    # make_train_step, each from fresh weights, every rank handed the
+    # whole (2, B, ...) slab.
+    xs = torch.stack([dev["x2"], dev["x2"].flip(1)])
+    ys = torch.stack([dev["y2"], dev["y2"].flip(1)])
+    for tag in ("multi", "steps"):
+        net, _ = tiny_nets(device)
+        opt = torch.optim.Adam(net.parameters(), **ADAM)
+        bce = L.LOSSES["binary_crossentropy"]
+        if tag == "multi":
+            loss = T.make_multi_step(net, bce, opt, 2, mesh=mesh)(xs, ys)["loss"]
+        else:
+            step = T.make_train_step(net, bce, opt, mesh=mesh)
+            loss = torch.stack([step(xs[k], ys[k])["loss"] for k in range(2)])
+        out[f"k2.{tag}.loss"] = _np(loss)
+        _record_net(out, f"k2.{tag}", net)
 
     # Losses that are not linear in their sums, and their gradients: a
     # rank's gradient is mesh.size times its rows' (``parallel.mesh.psum``).

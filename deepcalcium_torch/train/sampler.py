@@ -13,7 +13,9 @@ seed gives the same batches bit for bit in both packages:
 
 :class:`Prefetcher` runs the sampler on a thread with a bounded queue, and
 :func:`make_put_fn` copies each batch to the device from that thread:
-through pinned memory with ``non_blocking=True`` for a CUDA device.
+through pinned memory with ``non_blocking=True`` for a CUDA device. For K
+steps per dispatch (``trainer.make_multi_step``), :func:`stack_batches`
+stacks K batches into one (K, B, ...) slab on that thread.
 """
 
 import queue
@@ -25,7 +27,8 @@ import torch
 from deepcalcium_torch.ops.augment import compose_random_walk
 from deepcalcium_torch.parallel.mesh import LocalShard, check_mesh, shard_batch
 
-__all__ = ["WindowSampler", "Prefetcher", "apply_d4_numpy", "make_put_fn"]
+__all__ = ["WindowSampler", "Prefetcher", "apply_d4_numpy", "make_put_fn",
+           "stack_batches"]
 
 _D4_NUMPY = [
     lambda a: a,
@@ -110,7 +113,7 @@ class WindowSampler:
             yield self.sample_batch(batch_size)
 
 
-def make_put_fn(device, mesh=None):
+def make_put_fn(device, mesh=None, kdisp: int = 1):
     """Host-to-device copy of a batch of numpy arrays, for
     :class:`Prefetcher`'s producer thread. For a CUDA device each array goes
     through pinned memory and is copied with ``non_blocking=True`` on the
@@ -118,9 +121,11 @@ def make_put_fn(device, mesh=None):
     waiting for it on the host.
 
     With a ``mesh`` only this rank's rows of each array are copied, marked
-    as a ``LocalShard`` so that the train step does not slice them again.
-    Every rank runs the same sampler from the same seed, so the ranks' rows
-    together are the batch one process would draw."""
+    as a ``LocalShard`` so that the train step does not slice them again:
+    the rows of dim 0, or of dim 1 for the (K, B, ...) slabs of
+    :func:`stack_batches` when ``kdisp > 1``. Every rank runs the same
+    sampler from the same seed, so the ranks' rows together are the batch
+    one process would draw."""
     device = torch.device(device)
     if device.type != "cuda":
         put = lambda a: torch.from_numpy(a).to(device)
@@ -129,9 +134,25 @@ def make_put_fn(device, mesh=None):
             device, non_blocking=True)
     if check_mesh(mesh) is None:
         return lambda b: tuple(put(a) for a in b)
+
+    def rows(a):
+        if kdisp == 1:
+            return shard_batch(mesh, a)
+        return np.swapaxes(shard_batch(mesh, np.swapaxes(a, 0, 1)), 0, 1)
+
     return lambda b: tuple(
-        put(np.ascontiguousarray(a)).as_subclass(LocalShard)
-        for a in shard_batch(mesh, tuple(b)))
+        put(np.ascontiguousarray(rows(a))).as_subclass(LocalShard) for a in b)
+
+
+def stack_batches(gen, k: int):
+    """Stack ``k`` consecutive (x, y) batches from ``gen`` into one
+    (k, B, ...) slab pair, the feeder of ``steps_per_dispatch=k``
+    (``trainer.make_multi_step``). Runs on the producer side (typically
+    inside a :class:`Prefetcher` thread)."""
+    while True:
+        bs = [next(gen) for _ in range(k)]
+        yield (np.stack([b[0] for b in bs]),
+               np.stack([b[1] for b in bs]))
 
 
 class Prefetcher:

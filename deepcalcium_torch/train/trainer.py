@@ -12,15 +12,19 @@ Port of ``deepcalcium_tpu.train.trainer``:
 - one train step is a training forward, the mean loss, a backward and an
   optimizer step; its metrics (the 7 neuron metrics, or the 5 spike ones)
   and the loss stay on the device as float32 scalars until the caller
-  fetches them once per epoch.
+  fetches them once per epoch;
+- :func:`make_multi_step` runs K such steps per call, as the JAX package's
+  K-step ``lax.scan`` does. On a CUDA device the K steps are one CUDA graph,
+  captured at the first call and replayed once per call: the eager step
+  spends most of its time in the host's launches (the card idles 34-81% of
+  a step at the published widths), and a replay launches them all at once.
 
 With a mesh (``parallel.mesh.Mesh``) the step is data parallel: each rank
 runs its slice of the global batch, and the BN statistics, the loss, the
 metrics and the gradients are those of the global batch.
 
-The JAX package's ``make_multi_step`` (a K-step ``lax.scan``) and
-``stable_apply_fn`` work around dispatch latency and jit caches that
-PyTorch's eager execution does not have, and are not ported.
+The JAX package's ``stable_apply_fn`` works around jit caches that PyTorch's
+eager execution does not have, and is not ported.
 """
 
 import numpy as np
@@ -28,10 +32,13 @@ import torch
 import torch.distributed as dist
 
 from deepcalcium_torch.ops import losses as L
-from deepcalcium_torch.parallel.mesh import check_mesh, local_shard, psum
+from deepcalcium_torch.parallel.mesh import (LocalShard, check_mesh,
+                                             local_shard, psum, shard_batch)
 
 __all__ = ["make_optimizer", "current_lr", "set_lr", "ReduceLROnPlateau",
-           "CosineDecay", "make_train_step", "ema_update", "make_eval_forward",
+           "CosineDecay", "make_train_step", "make_multi_step",
+           "make_capturable_", "metric_rows", "ema_update",
+           "make_eval_forward",
            "optax_state", "load_optax_state_"]
 
 # optax.adam's defaults.
@@ -94,7 +101,7 @@ def optax_state(model, optimizer) -> dict:
     group = optimizer.param_groups[0]
     b1, b2 = group["betas"]
     hyper = {"b1": _f32(b1), "b2": _f32(b2), "eps": _f32(group["eps"]),
-             "eps_root": _f32(0.0), "learning_rate": _f32(group["lr"])}
+             "eps_root": _f32(0.0), "learning_rate": _f32(current_lr(optimizer))}
     adam = {"count": count, "mu": moments("exp_avg"),
             "nu": moments("exp_avg_sq")}
     if isinstance(optimizer, torch.optim.AdamW):
@@ -111,7 +118,10 @@ def optax_state(model, optimizer) -> dict:
 def load_optax_state_(model, optimizer, opt_state: dict):
     """Restore Adam's moments, step count and learning rate from optax's
     state dict (the inverse of :func:`optax_state`), in place, through the
-    model's ``torch_tensors(tree)``."""
+    model's ``torch_tensors(tree)``. The step count of a capturable group
+    (:func:`make_capturable_`) lives on the parameter's device. Load before
+    the first call of a :func:`make_multi_step` on the card: its graph holds
+    the state tensors it was captured with."""
     if ("weight_decay" in opt_state["hyperparams"]) != isinstance(
             optimizer, torch.optim.AdamW):
         raise ValueError("the checkpoint's optimizer and this one differ in "
@@ -120,9 +130,12 @@ def load_optax_state_(model, optimizer, opt_state: dict):
     mu = model.torch_tensors(adam["mu"])
     nu = model.torch_tensors(adam["nu"])
     step = float(adam["count"])
+    capturable = {p: g.get("capturable", False)
+                  for g in optimizer.param_groups for p in g["params"]}
     for name, p in model.named_parameters():
         optimizer.state[p] = {
-            "step": torch.tensor(step, dtype=torch.float32),
+            "step": torch.tensor(step, dtype=torch.float32,
+                                 device=p.device if capturable[p] else "cpu"),
             "exp_avg": mu[name].to(p.device),
             "exp_avg_sq": nu[name].to(p.device)}
     set_lr(optimizer, float(opt_state["hyperparams"]["learning_rate"]))
@@ -134,8 +147,14 @@ def current_lr(optimizer) -> float:
 
 
 def set_lr(optimizer, lr: float):
+    """Set every group's learning rate. A tensor rate (a capturable group's,
+    :func:`make_capturable_`) is filled in place, so that a captured graph
+    reads the new value at its next replay."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
     return optimizer
 
 
@@ -267,6 +286,186 @@ def _make_mesh_step(model, loss_fn, optimizer, metric_fns, mesh):
         return metrics
 
     return step
+
+
+def make_multi_step(model, loss_fn, optimizer, nsteps: int, metric_fns=None,
+                    ema=None, ema_decay=None, mesh=None):
+    """K = ``nsteps`` train steps per call, the JAX package's
+    ``make_multi_step``.
+
+    The K steps are those of K calls of :func:`make_train_step` on
+    ``xs[k], ys[k]`` (each one's metrics from the forward before its
+    update), each followed by :func:`ema_update` of ``ema``'s parameters
+    when ``ema_decay`` is set, as the JAX package's scan carries the
+    average.
+
+    On the CPU the steps run as a Python loop. On a CUDA device they are one
+    CUDA graph: the first call captures the K steps (after one warm-up run
+    of them, whose changes to the weights, BN buffers, Adam's state, the
+    average and the dropout generator are undone), and every call copies
+    its slab into the graph's static buffers and replays it once. The
+    optimizer is made capturable first (:func:`make_capturable_`). A
+    capture or replay that fails raises; no eager step takes its place.
+    The graph holds the tensors it was captured with: the parameters, the
+    buffers, Adam's state and the rate tensor of ``optimizer``'s groups
+    (:func:`set_lr` fills it in place) must not be replaced afterwards, and
+    every call passes the same dropout generator (or None, at drp=0) and
+    slabs of one shape.
+
+    # Arguments
+        nsteps: K, the steps of one call.
+        ema: a copy of ``model`` whose parameters hold the average, with
+            ``ema_decay``.
+        mesh: data parallelism as in :func:`make_train_step`; the slabs'
+            dim 1 is the batch, and a ``LocalShard`` slab is this rank's
+            rows already (``sampler.make_put_fn(device, mesh, kdisp)``).
+        (the rest as in :func:`make_train_step`.)
+
+    # Returns
+        step(xs, ys, generator=None) -> {name: (K,) float32 tensor} on the
+        device, for (K, B, ...) slabs ``xs`` and ``ys``.
+    """
+    nsteps = int(nsteps)
+    if nsteps < 1:
+        raise ValueError(f"nsteps={nsteps} must be >= 1")
+    if (ema is None) != (ema_decay is None):
+        raise ValueError("ema and ema_decay go together")
+    one = make_train_step(model, loss_fn, optimizer, metric_fns, mesh)
+    params = list(model.parameters())
+    averaged = list(ema.parameters()) if ema is not None else None
+
+    def rows(a):
+        """This rank's rows of a slab, marked for the step."""
+        if mesh is None:
+            return a
+        if not isinstance(a, LocalShard):
+            a = shard_batch(mesh, a.transpose(0, 1)).transpose(0, 1)
+        return a.as_subclass(LocalShard)
+
+    def steps(xs, ys, generator=None):
+        if xs.shape[0] != nsteps or ys.shape[0] != nsteps:
+            raise ValueError(f"slabs of {xs.shape[0]} and {ys.shape[0]} "
+                             f"batches for {nsteps} steps")
+        xs, ys = rows(xs), rows(ys)
+        out = []
+        for k in range(nsteps):
+            out.append(one(xs[k], ys[k], generator))
+            if averaged is not None:
+                ema_update(averaged, params, ema_decay)
+        return {key: torch.stack([m[key] for m in out]) for key in out[0]}
+
+    if params[0].device.type != "cuda":
+        return steps
+    make_capturable_(optimizer)
+    return _GraphedSteps(steps, model, optimizer, ema)
+
+
+@torch.no_grad()
+def make_capturable_(optimizer):
+    """Ready an Adam or AdamW over CUDA parameters for CUDA graph capture,
+    in place: every group ``capturable=True`` with its learning rate as a
+    0-d float32 tensor on the parameters' device, and every parameter's
+    state present, its step count a device tensor. A missing state is
+    Adam's fresh one (zero moments, step 0). Capturable Adam forms its bias
+    corrections on the device in float32, where the default forms them on
+    the host in float64: its updates differ from the default's by a few
+    float32 ulps. Idempotent."""
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device
+        group["capturable"] = True
+        if not torch.is_tensor(group["lr"]):
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                       device=dev)
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.zeros((), dtype=torch.float32, device=dev)
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            else:
+                state["step"] = state["step"].to(dev, torch.float32)
+    return optimizer
+
+
+class _GraphedSteps:
+    """The K steps of :func:`make_multi_step` as one CUDA graph."""
+
+    def __init__(self, steps, model, optimizer, ema):
+        self.steps = steps
+        self.model, self.optimizer, self.ema = model, optimizer, ema
+        self.graph = None
+
+    def _state(self):
+        """Every tensor the steps change, but the gradients."""
+        ts = list(self.model.parameters()) + list(self.model.buffers())
+        for state in self.optimizer.state.values():
+            ts += [v for v in state.values() if torch.is_tensor(v)]
+        if self.ema is not None:
+            ts += list(self.ema.parameters())
+        return ts
+
+    def _capture(self, xs, ys, generator):
+        self.xs, self.ys = torch.empty_like(xs), torch.empty_like(ys)
+        self.xs.copy_(xs)
+        self.ys.copy_(ys)
+        self.generator = generator
+        # Warm up on a side stream (cuDNN, cuBLAS and the optimizer's first
+        # calls must not happen inside the capture), then undo what the
+        # warm-up changed, so that the first replay starts where K eager
+        # steps would.
+        tensors = self._state()
+        saved = [t.detach().clone() for t in tensors]
+        rng = generator.get_state() if generator is not None else None
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.steps(self.xs, self.ys, generator)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+        if generator is not None:
+            generator.set_state(rng)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            # Each replay then draws the masks K eager steps would, and
+            # advances the generator as far.
+            graph.register_generator_state(generator)
+        # thread_local: the prefetch thread may pin and copy meanwhile.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self.steps(self.xs, self.ys, generator)
+            self.keys = list(out)
+            self.out = torch.stack([out[k] for k in self.keys])
+        self.graph = graph
+
+    def __call__(self, xs, ys, generator=None):
+        if self.graph is None:
+            self._capture(xs, ys, generator)
+        elif generator is not self.generator:
+            raise ValueError("the graph replays the dropout generator it was "
+                             "captured with; pass that one")
+        elif xs.shape != self.xs.shape or ys.shape != self.ys.shape:
+            raise ValueError(f"slabs of {tuple(xs.shape)} and "
+                             f"{tuple(ys.shape)}; the graph was captured for "
+                             f"{tuple(self.xs.shape)} and "
+                             f"{tuple(self.ys.shape)}")
+        else:
+            self.xs.copy_(xs)
+            self.ys.copy_(ys)
+        self.graph.replay()
+        # A copy: the next replay overwrites the graph's outputs.
+        return dict(zip(self.keys, self.out.clone().unbind()))
+
+
+def metric_rows(step_metrics, keys):
+    """One (steps, len(keys)) tensor from the dicts that :func:`make_train_step`
+    (0-d values) or :func:`make_multi_step` ((K,) values) return: a row a
+    step, in order, so that K steps a call give K=1's rows."""
+    return torch.cat([torch.stack([m[k] for k in keys], -1).reshape(-1, len(keys))
+                      for m in step_metrics])
 
 
 @torch.no_grad()

@@ -169,9 +169,9 @@ def main(argv=None, space=None):
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--steps-per-dispatch", type=int, default=10,
-                    help="accepted for command lines written for the JAX "
-                         "script (must be >= 1 and divide --steps); passed "
-                         "to fit, which logs it and runs one step a launch")
+                    help="train steps a dispatch, passed to fit: one CUDA "
+                         "graph of K steps on the card (must be >= 1 and "
+                         "divide --steps)")
     ap.add_argument("--val-shape", type=int, default=512,
                     help="must be >= the summary image side (512 covers real "
                          "Neurofinder; fixture sweeps pass their fixture size)")

@@ -130,6 +130,19 @@ def test_help_states_no_tpu_figures():
     joined = " ".join(" ".join(texts).split())
     assert "8x-TTA" in joined  # a property of the method, kept
     assert "no effect in the PyTorch port" in joined
+    # K steps a dispatch and the perf preset take effect; the PRNG and the
+    # lane-packed step stay the JAX package's no-ops.
+    subs = _subparsers(parser)
+    for name in ("train", "spikes-train"):
+        helps = {a.option_strings[0]: a.help for a in subs[name]._actions
+                 if a.option_strings}
+        assert "CUDA graph" in helps["--steps-per-dispatch"]
+        for flag in ("--steps-per-dispatch", "--preset"):
+            assert "no effect" not in helps[flag], (name, flag)
+        assert "no effect in the PyTorch port" in helps["--prng-impl"]
+    assert "no effect in the PyTorch port" in " ".join(
+        a.help for a in subs["train"]._actions
+        if a.option_strings == ["--fast-train"])
     # The check has teeth: the JAX parser's help does carry them.
     jtexts = " ".join(sub.format_help() for sub in
                       _subparsers(jcli.build_parser()).values())

@@ -221,6 +221,67 @@ def test_bf16_train_step_lowers_the_loss_on_card(cuda_device):
     assert losses[-1] < losses[0]
 
 
+def test_multi_step_graph_matches_eager_steps_on_card(cuda_device):
+    """``make_multi_step`` (one CUDA graph of 3 steps) for two calls against
+    6 eager steps with the same capturable optimizer and an average, bf16
+    at nfb=4 with dropout from a device generator in the same state, cuDNN
+    deterministic: weights, buffers, Adam's state, the average, the metrics
+    and the generator equal bit for bit. Then an lr of 0 reaches the graph:
+    a call moves no weight."""
+    import copy
+
+    from deepcalcium_torch.ops.losses import binary_crossentropy
+    from deepcalcium_torch.train import trainer
+
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.standard_normal((3, 4, 32, 32)).astype(
+        np.float32)).to(cuda_device)
+    ys = (torch.rand(xs.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(3), device=cuda_device) < 0.2).float()
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphed in (True, False):
+            model = UNet2DS(nfb=4, compute_dtype=torch.bfloat16,
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(cuda_device)
+            ema = copy.deepcopy(model)
+            opt = trainer.make_optimizer(model, 2e-3)
+            gen = torch.Generator(device=cuda_device).manual_seed(2)
+            if graphed:
+                step = trainer.make_multi_step(model, binary_crossentropy, opt,
+                                               3, ema=ema, ema_decay=0.9)
+                mets = [step(xs, ys, gen) for _ in range(2)]
+            else:
+                trainer.make_capturable_(opt)
+                step = trainer.make_train_step(model, binary_crossentropy, opt)
+                mets = []
+                for _ in range(2):
+                    for k in range(3):
+                        mets.append(step(xs[k], ys[k], gen))
+                        trainer.ema_update(ema.parameters(),
+                                           model.parameters(), 0.9)
+            state = [t.detach().clone() for t in
+                     list(model.parameters()) + list(model.buffers())
+                     + list(ema.parameters())]
+            for p in model.parameters():
+                state += [v.clone() for v in opt.state[p].values()]
+            runs.append((state, trainer.metric_rows(mets, sorted(mets[0])),
+                         gen.get_state()))
+            if graphed:
+                trainer.set_lr(opt, 0.0)
+                before = [p.detach().clone() for p in model.parameters()]
+                step(xs, ys, gen)
+                assert all(torch.equal(a, p) for a, p in
+                           zip(before, model.parameters()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (sa, ma, ga), (sb, mb, gb) = runs
+    assert ma.shape == (6, 8) and torch.isfinite(ma).all()
+    assert torch.equal(ma, mb) and torch.equal(ga, gb)
+    assert len(sa) == len(sb) and all(torch.equal(a, b) for a, b in zip(sa, sb))
+
+
 # --- the spike path ------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

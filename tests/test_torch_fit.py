@@ -162,7 +162,8 @@ def test_fit_needs_a_card_by_default():
 
 def test_fit_options_run(datasets, tmp_path, caplog):
     """EMA, a callable lr schedule, AdamW, remat, adaptive sampling, a
-    profile, epoch callbacks and the logged no-op knobs, on the CPU."""
+    profile, epoch callbacks, the perf preset (K=2 steps a call) and the
+    logged no-op knobs (the PRNG), on the CPU."""
     seen = []
     model = _port(tmp_path, remat=True)
     with caplog.at_level(logging.INFO, logger=tsummary.__name__):
@@ -172,7 +173,9 @@ def test_fit_options_run(datasets, tmp_path, caplog):
             adaptive_sampling=True, profile_dir=str(tmp_path / "prof"),
             epoch_callbacks=[lambda e, logs: seen.append((e, logs["loss"]))],
             preset="perf", steps_per_dispatch=2, prng_impl="rbg", **TRAIN)
-    assert "no-ops here" in caplog.text
+    assert "preset='perf': steps_per_dispatch=2 (K steps a call)" in caplog.text
+    assert "prng_impl='rbg', fast_train='auto': PRNG and lane-packing " \
+        "levers of the JAX package; no-ops here" in caplog.text
     assert [e for e, _ in seen] == [0, 1] and np.isfinite(hist["loss"]).all()
     assert hist["lr"] == [2e-3, 5e-4]
     assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path / "prof"))

@@ -191,6 +191,32 @@ def _jax_step_metrics(net, inputs):
     return {k: float(v) for k, v in met.items()}
 
 
+@pytest.mark.parametrize("part", ["loss", "param", "buf", "grad"])
+def test_multi_step_on_two_ranks(ranks, single, part):
+    """Two UNet2DS steps in one meshed ``make_multi_step`` call: on each rank
+    bit for bit the same two steps through ``make_train_step(mesh=)``, and
+    within the one-step tolerances of one process (the weights after two
+    Adam steps at eps 1e-4: atol 2e-5; the last step's gradients 1e-5 of
+    the largest)."""
+    keys = _keys(single, f"k2.multi.{part}")
+    assert keys
+    for r in (*ranks, single):
+        for k in keys:
+            np.testing.assert_array_equal(r[k], r[k.replace(".multi.", ".steps.")],
+                                          err_msg=k)
+    scale = max(np.abs(single[k]).max() for k in keys)
+    for k in keys:
+        if part == "loss":
+            np.testing.assert_allclose(ranks[0][k], single[k], rtol=2e-5)
+        elif part == "buf":
+            np.testing.assert_allclose(ranks[0][k], single[k], rtol=1e-5,
+                                       atol=1e-7, err_msg=k)
+        else:
+            atol = 2e-5 if part == "param" else 1e-5 * scale
+            np.testing.assert_allclose(ranks[0][k], single[k], rtol=0,
+                                       atol=atol, err_msg=k)
+
+
 @pytest.mark.parametrize("net", list(NETS))
 def test_train_step_loss_matches_jax(ranks, inputs, net):
     met = _jax_step_metrics(net, inputs)
@@ -453,6 +479,47 @@ def test_unet1dsegmentation_fit_with_a_one_rank_mesh_writes_the_same_bytes(
     pred, names = model.predict([path], best1, batch=5, mesh=mesh1)
     want, _ = model.predict([path], best1, batch=5)
     np.testing.assert_array_equal(pred[0], want[0])
+
+
+@pytest.mark.parametrize("wrapper", ["2d", "1d"])
+def test_fit_of_k_steps_a_call_with_a_one_rank_mesh_is_k1_without(
+        mesh1, tmp_path, monkeypatch, wrapper):
+    """Both fits at 3 steps a call over a one-rank mesh (their slabs fed as
+    this rank's rows, ``make_put_fn(device, mesh, 3)``), dropout on, write
+    the bytes of the K=1 fit without a mesh."""
+    import deepcalcium_torch.models.unet_1d_segmentation as seg
+    import deepcalcium_torch.models.unet_2d_summary as summ
+    import deepcalcium_torch.utils.visualization as vis
+
+    for mod in (seg, summ):
+        monkeypatch.setattr(mod, "plot_metrics_grid", lambda *a, **k: None)
+    monkeypatch.setattr(vis, "plot_traces_spikes", lambda *a, **k: None)
+    best = {}
+    for name, mesh, k in (("plain", None, 1), ("mesh", mesh1, 3)):
+        cpdir = str(tmp_path / name)
+        if wrapper == "2d":
+            paths = [make_neurons_hdf5(str(tmp_path / f"ds{i}" / "dataset.hdf5"),
+                                       name=f"synthetic.00.0{i}", shape=(64, 64),
+                                       nb_frames=16, nb_neurons=6, seed=i)
+                     for i in range(2)]
+            model = UNet2DSummary(cpdir=cpdir, device="cpu",
+                                  net_func=functools.partial(tunet2.UNet2DS, nfb=4))
+            _, best[name] = model.fit(paths, mesh=mesh, steps_per_dispatch=k,
+                                      shape_trn=(32, 32), shape_val=(64, 64),
+                                      batch_size_trn=4, nb_steps_trn=3,
+                                      nb_epochs=2, seed=5, ema_decay=0.5)
+        else:
+            path = make_spikes_hdf5(str(tmp_path / "spikes.hdf5"), nb_traces=12,
+                                    trace_len=300, seed=1)
+            model = UNet1DSegmentation(
+                cpdir=cpdir, device="cpu",
+                net_func=functools.partial(tunet1.UNet1D, nfb=4))
+            _, _, best[name] = model.fit([path], mesh=mesh, steps_per_dispatch=k,
+                                         shape=(64,), batch=4, nb_epochs=2,
+                                         seed=3)
+    a, b = (read_checkpoint(best[k]) for k in ("plain", "mesh"))
+    for part in ("params", "state", "opt_state"):
+        _tree_equal(a[part], b[part], part)
 
 
 def test_run_batched_pads_each_slab_to_the_mesh(mesh1):

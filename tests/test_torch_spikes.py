@@ -236,13 +236,16 @@ def test_cross_validate_matches_jax(datasets, tmp_path, monkeypatch):
 
 def test_fit_draws_its_own_init_from_the_seed(datasets, tmp_path, caplog):
     """Without ``init_params`` the net is drawn on the CPU from the seed:
-    at lr 0 the checkpoint holds exactly ``UNet1D``'s draw from it. The
-    no-op knobs are logged; the sample and metrics plots are written."""
+    at lr 0 the checkpoint holds exactly ``UNet1D``'s draw from it (through
+    the perf preset's K=2 steps a call). The preset's K and the no-op PRNG
+    knob are logged; the sample and metrics plots are written."""
     model = _port_model(tmp_path, init_params=None)
     with caplog.at_level(logging.INFO, logger=tseg.__name__):
         mt, mv, best = model.fit(datasets, preset="perf", prng_impl="rbg",
                                  **dict(FIT, nb_epochs=1, learning_rate=0.0))
-    assert "no-ops here" in caplog.text
+    assert "preset='perf': steps_per_dispatch=2 (steps_trn=2)" in caplog.text
+    assert "prng_impl='rbg': the JAX package's PRNG lever; a no-op here" \
+        in caplog.text
     assert all(np.isfinite(v) for v in mv.values())
     files = os.listdir(tmp_path)
     assert any(f.endswith("_samples_000_val.png") for f in files)
