@@ -43,8 +43,11 @@ Phases, one line each, in order:
     and near the default path, timed and profiled beside the K=1 step, and
     one ``fit(preset="perf")`` of each wrapper (``phase_multistep``);
 15. ``UNet1DSegmentation.predict`` of the 200 full-length traces from the
-    best checkpoint at batch 32, timed; at float32 (TF32 off) batch 8 and
-    batch 32 give the same masks away from the threshold;
+    best checkpoint at batch 32, bf16: the default (the folded net,
+    ``UNet1D.fold``) and ``fast=False`` (the unfolded eval net) timed in
+    turns, each with its device profile; at float32 (TF32 off) the folded
+    masks equal the unfolded ones, and batch 8 gives batch 32's, away from
+    the threshold;
 16. ``GLMSegmentation`` fit, predict and ``predict_rates`` for the GLM and
     the STM on the same traces, with the ms of a full-batch epoch;
 17. per-frame segmentation at full width: ``segment_movie`` on a host
@@ -57,7 +60,8 @@ Phases, one line each, in order:
     on separated neurons;
 19. the command line, ``deepcalcium_torch.cli.main([...])`` with no
     ``--device``: ``evaluate-movie``, ``segment``, ``parity-golden``,
-    ``predict``, ``spikes-train --arch glm`` and ``spikes-predict``. This
+    ``predict``, ``spikes-train --arch glm``, ``spikes-predict --arch glm``
+    and ``spikes-predict --arch unet1d`` of the phase-14 checkpoint. This
     machine has no h5py, so the four private functions the commands get
     their wrappers and movies through are replaced with ones that hand over
     in-memory arrays through the wrappers' injection points;
@@ -129,10 +133,10 @@ def _timed_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_time_per_call(fn, calls, skip=()):
-    """Kernel time and kernel launches per call of ``fn`` from
-    ``torch.profiler``, and the 5 kernels that take the most time. Device
-    events whose name starts with one of ``skip`` are left out."""
+def _kernel_table(fn, calls, skip=()):
+    """``(name, ms a call, launches a call)`` of every kernel that ``calls``
+    calls of ``fn`` launch, from ``torch.profiler``, the most time first.
+    Device events whose name starts with one of ``skip`` are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,10 +155,18 @@ def _device_time_per_call(fn, calls, skip=()):
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith(tuple(skip))]
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    total_ms = sum(e.self_device_time_total for e in kernels) / calls / 1e3
-    launches = sum(e.count for e in kernels) / calls
-    top = [(e.key[:60], e.self_device_time_total / calls / 1e3)
-           for e in kernels[:5]]
+    return [(e.key, e.self_device_time_total / calls / 1e3, e.count / calls)
+            for e in kernels]
+
+
+def _device_time_per_call(fn, calls, skip=()):
+    """Kernel time and kernel launches per call of ``fn`` from
+    ``torch.profiler``, and the 5 kernels that take the most time
+    (``_kernel_table``)."""
+    kernels = _kernel_table(fn, calls, skip)
+    total_ms = sum(ms for _, ms, _ in kernels)
+    launches = sum(n for _, _, n in kernels)
+    top = [(name[:60], ms) for name, ms, _ in kernels[:5]]
     return total_ms, launches, top
 
 
@@ -1698,10 +1710,24 @@ def phase_multistep(dev, card, seed, fit_ctx, fit_numbers, fit1d_ctx,
     return numbers
 
 
+# Calls of each spike predict, folded and unfolded in turns: the host's
+# share of a call varies from call to call.
+PREDICT1D_TURNS = 5
+
+
+def _is_elementwise(name):
+    """PyTorch's pointwise kernels (a bias add, an eval BN pass, a ReLU, a
+    cast): ``elementwise_kernel`` and its vectorized and unrolled kin."""
+    return "elementwise_kernel" in name
+
+
 def phase_predict1d(dev, fit_ctx, card, band=1e-4):
     """``UNet1DSegmentation.predict`` of the full-length traces from the
-    best checkpoint, bf16 at batch 32, timed; then float32 (TF32 off) at
-    batch 8 and 32: masks equal except within ``band`` of the threshold."""
+    best checkpoint, bf16 at batch 32: the default (``fast="auto"``, the
+    folded net) and ``fast=False`` (the unfolded eval net) timed in turns,
+    each with its device profile. At float32 (TF32 off) the folded masks
+    equal the unfolded net's, and batch 8 gives batch 32's masks, except
+    within ``band`` of the threshold."""
     import numpy as np
     import torch
 
@@ -1728,64 +1754,113 @@ def phase_predict1d(dev, fit_ctx, card, band=1e-4):
             compute_dtype=dtype, device=dev)
 
     bf16 = wrapper(torch.bfloat16)
+    modes = {"folded": "auto", "unfolded": False}
+    runs = {m: [] for m in modes}
+    masks = {}
     movie_summary_cuda.launches = movie_fold_cuda.launches = 0
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        masks, names = bf16.predict([name], ckpt, batch=32)
-        runs.append(time.perf_counter() - t0)
+    with _LogArgs(seg.__name__) as records:
+        for _ in range(PREDICT1D_TURNS):
+            for mode, fast in modes.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, names = bf16.predict([name], ckpt, batch=32, fast=fast)
+                runs[mode].append(time.perf_counter() - t0)
+                masks[mode] = got[0]
+                if names != [name]:
+                    raise AssertionError(f"predict returned {names}")
     k1_launches = movie_summary_cuda.launches + movie_fold_cuda.launches
-    device_ms, kernels, top = _device_time_per_call(
-        lambda: bf16.predict([name], ckpt, batch=32), 1)
-    m = masks[0]
-    if names != [name] or m.shape != traces.shape or m.dtype != np.uint8 \
-            or not set(np.unique(m)) <= {0, 1}:
-        raise AssertionError(f"predict returned {names}, {m.shape} {m.dtype}")
+    fold_logs = sum("folded inference forward" in r.getMessage()
+                    for r in records)
+    if fold_logs != PREDICT1D_TURNS:
+        raise AssertionError(f"the default predict folded {fold_logs} of "
+                             f"{PREDICT1D_TURNS} times")
+    for m in masks.values():
+        if m.shape != traces.shape or m.dtype != np.uint8 \
+                or not set(np.unique(m)) <= {0, 1}:
+            raise AssertionError(f"predict returned {m.shape} {m.dtype}")
+    prof = {}
+    for mode, fast in modes.items():
+        kernels = _kernel_table(
+            lambda: bf16.predict([name], ckpt, batch=32, fast=fast), 1)
+        prof[mode] = {
+            "seconds": runs[mode],
+            "wall_ms_best": min(runs[mode]) * 1e3,
+            "wall_ms_median": float(np.median(runs[mode])) * 1e3,
+            "device_ms": sum(ms for _, ms, _ in kernels),
+            "kernels": sum(n for _, _, n in kernels),
+            "elementwise_ms": sum(ms for k, ms, _ in kernels
+                                  if _is_elementwise(k)),
+            "elementwise_kernels": sum(n for k, _, n in kernels
+                                       if _is_elementwise(k)),
+            "top": [(k[:60], ms) for k, ms, _ in kernels[:5]]}
+        prof[mode]["device_idle"] = 1.0 - prof[mode]["device_ms"] / prof[
+            mode]["wall_ms_best"]
 
     torch.backends.cudnn.allow_tf32 = False
     try:
         f32 = wrapper(None)
         m8 = f32.predict([name], ckpt, batch=8)[0][0]
         m32 = f32.predict([name], ckpt, batch=32)[0][0]
+        mu = f32.predict([name], ckpt, batch=32, fast=False)[0][0]
         net = from_jax_params(fit_ctx["ckpt"]["params"], fit_ctx["ckpt"]["state"],
                               device=dev, margin=SPIKE_MARGIN).eval()
+        folded = net.fold()
         with torch.inference_mode():
-            probs = torch.cat([net(torch.from_numpy(padded[i:i + 32]).to(dev))
-                               for i in range(0, len(padded), 32)])
-        probs = probs[:, :t].cpu().numpy()
+            probs, probs_f = (torch.cat([
+                m(torch.from_numpy(padded[i:i + 32]).to(dev))
+                for i in range(0, len(padded), 32)])[:, :t].cpu().numpy()
+                for m in (net, folded))
     finally:
         torch.backends.cudnn.allow_tf32 = True
-    near = np.abs(probs - 0.5) < band
+    near = (np.abs(probs - 0.5) < band) | (np.abs(probs_f - 0.5) < band)
     differ = m8 != m32
-    if (differ & ~near).any() or not np.array_equal(m32[~near], (probs > 0.5)[~near]):
-        raise AssertionError("f32 predict masks differ between batch 8 and 32 "
+    fold_differ = m32 != mu
+    if (differ & ~near).any() or (fold_differ & ~near).any() \
+            or not np.array_equal(m32[~near], (probs_f > 0.5)[~near]) \
+            or not np.array_equal(mu[~near], (probs > 0.5)[~near]):
+        raise AssertionError("f32 predict masks differ between batch 8 and "
+                             "32 or between the folded and unfolded nets "
                              "away from the threshold")
+    max_prob_diff = float(np.abs(probs_f - probs).max())
+    m, mu16 = masks["folded"], masks["unfolded"]
     samples = traces.size
-    numbers = {"seconds": runs, "samples_per_sec": [samples / r for r in runs],
+    numbers = {"samples_per_sec": [samples / r for r in runs["folded"]],
                "traces": list(traces.shape), "padded_to": padded.shape[1],
+               "folded": prof["folded"], "unfolded": prof["unfolded"],
                "f32_batch8_vs_32_differ": int(differ.sum()),
+               "f32_fold_vs_unfolded_differ": int(fold_differ.sum()),
+               "f32_fold_max_prob_diff": max_prob_diff,
                "f32_within_band": int(near.sum()), "band": band,
+               "bf16_fold_vs_unfolded_differ_fraction": float((m != mu16).mean()),
                "bf16_vs_f32_differ_fraction": float((m != m32).mean()),
                "spike_fraction": float(m.mean()), "k1_launches": k1_launches,
-               "device_ms": device_ms, "kernels": kernels,
                "tflops": SPIKE_TRACES * forward_flops(
-                   padded.shape[1], NFB) / min(runs) / 1e12,
-               "device_idle": 1.0 - device_ms / (min(runs) * 1e3)}
+                   padded.shape[1], NFB) / min(runs["folded"]) / 1e12}
     print(f"spike predict bf16 batch 32, {traces.shape[0]} traces of "
-          f"{traces.shape[1]} (reflect-padded to {padded.shape[1]}): "
-          f"{', '.join(f'{r * 1e3:.1f}' for r in runs)} ms, "
-          f"{max(numbers['samples_per_sec']):.4g} trace-samples/s; f32 TF32 "
-          f"off, batch 8 vs 32: {int(differ.sum())} samples differ, all "
-          f"within {band} of 0.5 ({int(near.sum())} samples there); bf16 "
-          f"masks differ from f32 on {numbers['bf16_vs_f32_differ_fraction']:.4%}; "
-          f"K1 launches {k1_launches}; {card}", flush=True)
-    print(f"spike predict on the device: {numbers['tflops']:.1f} TFLOP/s "
-          f"bf16 over the fastest call; {kernels:.0f} kernels, "
-          f"{device_ms:.1f} ms of them a call, so the card idles "
-          f"{numbers['device_idle']:.1%}; most device time: "
-          + "; ".join(f"{n} {ms:.2f} ms" for n, ms in top) + f"; {card}",
-          flush=True)
+          f"{traces.shape[1]} (reflect-padded to {padded.shape[1]}), in "
+          f"turns: folded (the default) "
+          f"{', '.join(f'{r * 1e3:.1f}' for r in runs['folded'])} ms, "
+          f"unfolded (fast=False) "
+          f"{', '.join(f'{r * 1e3:.1f}' for r in runs['unfolded'])} ms; "
+          f"{max(numbers['samples_per_sec']):.4g} trace-samples/s folded; "
+          f"f32 TF32 off: folded vs unfolded {int(fold_differ.sum())} "
+          f"samples differ and batch 8 vs 32 {int(differ.sum())}, all within "
+          f"{band} of 0.5 ({int(near.sum())} samples there), largest "
+          f"probability difference {max_prob_diff:.3g}; bf16 masks folded vs "
+          f"unfolded differ on "
+          f"{numbers['bf16_fold_vs_unfolded_differ_fraction']:.4%}, folded bf16 "
+          f"vs f32 on {numbers['bf16_vs_f32_differ_fraction']:.4%}; K1 "
+          f"launches {k1_launches}; {card}", flush=True)
+    for mode in modes:
+        p = prof[mode]
+        print(f"spike predict {mode} on the device: {p['kernels']:.0f} "
+              f"kernels, {p['device_ms']:.1f} ms of them a call "
+              f"({p['elementwise_ms']:.1f} ms in {p['elementwise_kernels']:.0f} "
+              f"elementwise kernels), fastest call {p['wall_ms_best']:.1f} ms "
+              f"(median {p['wall_ms_median']:.1f}), "
+              f"so the card idles {p['device_idle']:.1%}; most device time: "
+              + "; ".join(f"{n} {ms:.2f} ms" for n, ms in p["top"])
+              + f"; {card}", flush=True)
     shutil.rmtree(out, ignore_errors=True)
     return numbers
 
@@ -2093,6 +2168,8 @@ def phase_cli(dev, main, spikes_ctx, card):
     from deepcalcium_torch import cli
     from deepcalcium_torch.models.glm_spikes import GLMSegmentation
     from deepcalcium_torch.models.movie_segmentation import segment_movie
+    from deepcalcium_torch.models.unet_1d_segmentation import (
+        UNet1DSegmentation)
     from deepcalcium_torch.models.unet_2d_summary import UNet2DSummary
     from deepcalcium_torch.ops.summary import movie_fold_cuda, movie_summary_cuda
     from deepcalcium_torch.train.checkpoints import save_checkpoint
@@ -2102,6 +2179,9 @@ def phase_cli(dev, main, spikes_ctx, card):
     (out / "cp").mkdir(parents=True)
     ckpt = str(out / "unet2ds_random.ckpt")
     save_checkpoint(ckpt, main["params"], main["state"])
+    ckpt1d = str(out / "unet1d_best.ckpt")
+    save_checkpoint(ckpt1d, spikes_ctx["ckpt"]["params"],
+                    spikes_ctx["ckpt"]["state"])
 
     movies = {"full.hdf5": main["host"], "short.hdf5": main["host"][:100]}
     mean = movie_summary_cuda(main["movie"])[0]
@@ -2131,13 +2211,17 @@ def phase_cli(dev, main, spikes_ctx, card):
             series_summary_func=summaries.__getitem__,
             mask_summary_func=truths.__getitem__, **kw)
 
+    spike_io = dict(dataset_attrs_func=lambda n: {"name": n},
+                    dataset_traces_func=lambda n: spikes_ctx["traces"][:40],
+                    dataset_spikes_func=lambda n: spikes_ctx["spikes"][:40])
+
     def spike_wrapper(args):
         devices.append(args.device)
-        return GLMSegmentation(
-            cpdir=args.checkpoints_dir, arch=args.arch, device=args.device,
-            dataset_attrs_func=lambda n: {"name": n},
-            dataset_traces_func=lambda n: spikes_ctx["traces"][:40],
-            dataset_spikes_func=lambda n: spikes_ctx["spikes"][:40])
+        if args.arch == "unet1d":
+            return UNet1DSegmentation(cpdir=args.checkpoints_dir,
+                                      device=args.device, **spike_io)
+        return GLMSegmentation(cpdir=args.checkpoints_dir, arch=args.arch,
+                               device=args.device, **spike_io)
 
     @contextlib.contextmanager
     def open_raw(path):
@@ -2221,6 +2305,18 @@ def phase_cli(dev, main, spikes_ctx, card):
                     best, "-c", str(out / "glm")])
         if not text.startswith("synthetic.spikes: (40, 30011), "):
             raise AssertionError(f"spikes-predict printed {text!r}")
+        # spikes-predict of the phase-14 checkpoint, the stock UNet1D:
+        # the folded net, the masks of the wrapper's own default predict.
+        text = run(["spikes-predict", "synthetic.spikes", "--arch", "unet1d",
+                    "-m", ckpt1d, "-c", str(out / "unet1d")])
+        want1d = UNet1DSegmentation(cpdir=str(out / "unet1d"), device=dev,
+                                  **spike_io).predict(["synthetic.spikes"],
+                                                      ckpt1d)[0][0]
+        if text.strip() != (f"synthetic.spikes: (40, 30011), "
+                            f"{int(want1d.sum())} spike samples"):
+            raise AssertionError(f"spikes-predict --arch unet1d printed "
+                                 f"{text!r}, the wrapper marks "
+                                 f"{int(want1d.sum())} samples")
     finally:
         torch.backends.cudnn.deterministic = False
         for k, fn in saved.items():
@@ -2240,7 +2336,9 @@ def phase_cli(dev, main, spikes_ctx, card):
           f"{fold_launches}; segment = segment_movie; parity-golden PASS at "
           f"tol 1.0 and exit code 1 at an impossible expectation; predict "
           f"wrote {len(subs)} submissions; spikes-train glm and "
-          f"spikes-predict ran; {seconds:.1f} s; {card}", flush=True)
+          f"spikes-predict (glm; unet1d on the folded net, "
+          f"{int(want1d.sum())} spike samples as the wrapper's predict) ran; "
+          f"{seconds:.1f} s; {card}", flush=True)
     return launches, {"seconds": seconds, "fold_launches": fold_launches,
                       "submissions": subs}
 

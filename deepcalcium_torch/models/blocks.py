@@ -25,8 +25,8 @@ from deepcalcium_torch.parallel.mesh import psum
 __all__ = ["BN_EPS", "Conv2d", "Conv1d", "ConvTranspose2x2", "BatchNorm",
            "conv2d", "conv1d", "tconv2x2", "maxpool2", "pool2",
            "maxpool1d_same", "upsample1d", "batch_norm", "batch_stats",
-           "dropout", "dropout_with_mask", "he_normal_", "kernel_init_",
-           "INIT_SCHEMES"]
+           "dropout", "dropout_with_mask", "fold_bn", "he_normal_",
+           "kernel_init_", "INIT_SCHEMES"]
 
 BN_EPS = 1e-3  # Keras 2.0.6 BatchNormalization default epsilon.
 
@@ -150,6 +150,19 @@ def batch_norm(x, gamma, beta, mean, var):
     dt = x.dtype
     return ((x - _per_channel(mean.to(dt), x)) * _per_channel(inv.to(dt), x)
             + _per_channel(beta.to(dt), x))
+
+
+def fold_bn(weight, bias, bn, out_dim: int = 0):
+    """Fold eval-mode BN into the preceding conv (``unet2d_fast.fold_bn``):
+    y = (conv(x) + b - mean) * gamma / sqrt(var + eps) + beta
+      = conv_scaled(x) + b'.
+    ``out_dim`` is the kernel's output-channel dim: 0 for OIHW and OIW
+    convs, 1 for (Cin, Cout, 2, 2) transpose convs."""
+    scale = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+    shape = [1] * weight.dim()
+    shape[out_dim] = -1
+    return (weight * scale.view(shape),
+            (bias - bn.running_mean) * scale + bn.bias)
 
 
 def batch_stats(x, mesh=None):

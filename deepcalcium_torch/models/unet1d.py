@@ -18,9 +18,14 @@ Sub-modules are named by the JAX package's ``LAYER_ORDER`` keys, so
 and :func:`jax_tree` / :func:`torch_tensors` move any per-parameter tensors
 (Adam's moments) the same way.
 
-The TPU lane-packing rewrite ``unet1d_fast.apply_fast_t`` is not ported:
-it reshapes tensors for the TPU's 128-lane matrix unit.
+``fold()`` ports the exact rewrites of ``unet1d_fast.apply_fast_t``: BN
+folded into every conv, and the head as float32 logits, the margin
+max-pool, then the sigmoid of their difference. Its T-packing is not
+ported: it packs time into channels to fill the TPU's 128-lane matrix
+unit, and on Hopper it would only multiply the thin levels' FLOPs.
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -91,6 +96,7 @@ class UNet1D(nn.Module):
         super().__init__()
         self.nfb, self.margin = nfb, int(margin)
         self.compute_dtype, self.drp = compute_dtype, drp
+        self.folded = False
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         cin = 1
@@ -112,6 +118,8 @@ class UNet1D(nn.Module):
 
     def _cbr(self, name, h, train, mesh=None):
         y = getattr(self, f"{name}_conv")(h, self.compute_dtype)
+        if self.folded:
+            return torch.relu(y)
         bn = getattr(self, f"{name}_bn")
         return torch.relu(bn(y, train, mesh))
 
@@ -124,6 +132,8 @@ class UNet1D(nn.Module):
         Skips are taken after dropout, as in the JAX package. With a
         ``mesh``, ``x`` is this rank's shard of the batch and the training
         statistics are the global batch's (``blocks.batch_stats``)."""
+        if train and self.folded:
+            raise ValueError("a folded model has no BN to train")
         if train and self.drp and generator is None:
             raise ValueError("the training forward needs a generator for "
                              "dropout (or drp=0)")
@@ -143,9 +153,34 @@ class UNet1D(nn.Module):
             h = torch.cat([h, skips[lvl]], dim=1)
             h = self._cbr(f"dec{lvl}b",
                           self._cbr(f"dec{lvl}a", h, train, mesh), train, mesh)
-        logits = self.head_conv(h, self.compute_dtype).float()
+        head = self.head_conv
+        if self.folded:
+            # Float32 logits, pooled before the difference (the pool does
+            # not commute with it): softmax([a, b])[1] == sigmoid(b - a).
+            logits = B.maxpool1d_same(
+                B.conv1d(h.float(), head.weight, head.bias), self.margin + 1)
+            return torch.sigmoid(logits[:, 1] - logits[:, 0])
+        logits = head(h, self.compute_dtype).float()
         logits = B.maxpool1d_same(logits, self.margin + 1)
         return torch.softmax(logits, dim=1)[:, -1]
+
+    @torch.no_grad()
+    def fold(self) -> "UNet1D":
+        """A copy with every BN folded into its conv, in float32, and the
+        head of ``unet1d_fast.apply_fast_t`` (exact up to float rounding).
+        It runs inference only."""
+        if self.folded:
+            return self
+        m = copy.deepcopy(self)
+        for name, kind, _ in layer_order(self.nfb):
+            if kind == "bn":
+                conv = getattr(m, name.replace("_bn", "_conv"))
+                w, b = B.fold_bn(conv.weight, conv.bias, getattr(m, name))
+                conv.weight.copy_(w)
+                conv.bias.copy_(b)
+                delattr(m, name)
+        m.folded = True
+        return m
 
 
 def _leaves(kind):
@@ -161,6 +196,8 @@ def jax_tree(model: UNet1D, tensors=None):
     parameter's name (``"enc0a_conv.weight"``) to a tensor of its shape,
     such as Adam's moments. WIO kernels are PyTorch's OIW permuted by
     (2, 1, 0). Arrays are copies."""
+    if model.folded:
+        raise ValueError("a folded model has no BN layers to export")
     out = {}
     for name, kind, _ in layer_order(model.nfb):
         layer = getattr(model, name)

@@ -22,6 +22,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from deepcalcium_torch.models import blocks as B
+from deepcalcium_torch.models.blocks import fold_bn
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet2DS", "fold_bn",
            "from_jax_params", "to_jax_params", "load_jax_params_",
@@ -62,19 +63,6 @@ def layer_order(nfb: int = _F, up_mode: str = "transpose"):
 
 
 LAYER_ORDER = layer_order()
-
-
-def fold_bn(weight, bias, bn, out_dim: int = 0):
-    """Fold eval-mode BN into the preceding conv (``unet2d_fast.fold_bn``):
-    y = (conv(x) + b - mean) * gamma / sqrt(var + eps) + beta
-      = conv_scaled(x) + b'.
-    ``out_dim`` is the kernel's output-channel dim: 0 for OIHW convs, 1 for
-    (Cin, Cout, 2, 2) transpose convs."""
-    scale = bn.weight * torch.rsqrt(bn.running_var + B.BN_EPS)
-    shape = [1] * weight.dim()
-    shape[out_dim] = -1
-    return (weight * scale.view(shape),
-            (bias - bn.running_mean) * scale + bn.bias)
 
 
 class UNet2DS(nn.Module):

@@ -462,10 +462,14 @@ class UNet1DSegmentation:
         Traces are reflect-padded to a multiple of 16 and cropped back, and
         run through the eval-mode net in slabs of ``batch``.
         ``model_path``: a ``.ckpt`` of either package or a Keras
-        ``.hdf5``/``.h5``. ``fast`` selects the JAX package's TPU T-packed
-        rewrite, which is not ported: every value runs the plain eval
-        forward. ``mesh``: each slab of traces is split over the mesh's
-        ranks and gathered; every rank gets every mask.
+        ``.hdf5``/``.h5``. The net is ``net_func``'s, with the weights
+        loaded; the stock ``UNet1D`` reads its width off the weights.
+        ``fast``: True, or "auto" when the built net is a ``UNet1D`` itself
+        (not a subclass), runs ``UNet1D.fold()``, BN folded into the convs
+        and the sigmoid head (exact up to float rounding), as the JAX
+        package dispatches ``apply_fast_t``; any other value runs the
+        unfolded eval net. ``mesh``: each slab of traces is split over the
+        mesh's ranks and gathered; every rank gets every mask.
         """
         check_mesh(mesh)
         if str(model_path).endswith((".hdf5", ".h5")):
@@ -475,8 +479,20 @@ class UNet1DSegmentation:
         else:
             ckpt = read_checkpoint(model_path)
             params, state = ckpt["params"], ckpt["state"]
-        net = from_jax_params(params, state, self.compute_dtype, self.device,
-                              margin=int(error_margin)).eval()
+        if self.net_func is UNet1D:
+            net = from_jax_params(params, state, self.compute_dtype,
+                                  margin=int(error_margin))
+        else:
+            net = load_jax_params_(self.net_func(
+                compute_dtype=self.compute_dtype,
+                generator=torch.Generator().manual_seed(0),
+                margin=int(error_margin)), params, state)
+        net = net.to(self.device).eval()
+        if fast is True or (fast == "auto" and type(net) is UNet1D):
+            logging.getLogger(__name__).info(
+                "fast=%r: running the folded inference forward (UNet1D.fold: "
+                "BN folded into the convs, the sigmoid head)", fast)
+            net = net.fold()
         fwd = T.make_eval_forward(net, mesh)
 
         spikes_pred_all, names_all = [], []

@@ -16,7 +16,8 @@ and UNet1D train steps (drp=0, so that one process is reproduced), a second
 the three losses that are not linear in their sums, the sharded summary at
 even and ragged T and at T = 1, ``_run_batched``, ``predict_tta``, the
 movie evaluator, ``segment_movie``, and two short epochs of both wrappers'
-``fit`` (rank 0 alone writes the checkpoints) with the spike ``predict``.
+``fit`` (rank 0 alone writes the checkpoints) with the spike ``predict``
+(on the folded net, its default for a ``UNet1D``).
 The lane-packed paths of the JAX dry run are not ported, and so are not
 here.
 

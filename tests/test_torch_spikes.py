@@ -176,7 +176,7 @@ def test_predict_matches_jax_across_checkpoints(runs, datasets):
     tmodel = _port_model(runs["dir"] / "tp")
     for best in (runs["jax"][2], runs["port"][2]):
         jm, jn = jmodel.predict(datasets, best, batch=8, fast=False)
-        tm, tn = tmodel.predict(datasets, best, batch=8)
+        tm, tn = tmodel.predict(datasets, best, batch=8, fast=False)
         assert tn == jn == ["spikes.0", "spikes.1"]
         params, state, _ = tck.load_checkpoint(best)
         for p, a, b in zip(datasets, tm, jm):
@@ -315,7 +315,7 @@ def test_predict_from_keras_file_matches_jax(keras_file, datasets, tmp_path):
     jm, _ = _jax_model(tmp_path / "j").predict(datasets, keras_file, batch=8,
                                                fast=False)
     tm, names = _port_model(tmp_path / "t").predict(datasets, keras_file,
-                                                    batch=8)
+                                                    batch=8, fast=False)
     assert names == ["spikes.0", "spikes.1"]
     params, state = jki.load_unet1d_keras(keras_file)
     for p, a, b in zip(datasets, tm, jm):
