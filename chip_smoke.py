@@ -643,15 +643,20 @@ def phase_fit(dev, seed):
                                              f"not the trained weight")
         if int(ckpt["opt_state"]["count"]) != FIT_STEPS * (int(ckpt["meta"]["epoch"]) + 1):
             raise AssertionError("best checkpoint has the wrong Adam count")
+        # The trained net, before evaluate_movie builds its own inference
+        # net through the same net_func.
+        net = nets[-1]
         name = list(movies)[0]
         mask, prob = wrapper.evaluate_movie(movies[name], model_path=best,
                                             window_shape=(WINDOW, WINDOW))
         if mask.shape != (WINDOW, WINDOW) or not np.isfinite(prob).all():
             raise AssertionError("evaluate_movie of the best checkpoint failed")
 
+        if len(nets) != 2 or nets[-1] is net:
+            raise AssertionError("evaluate_movie did not build its net "
+                                 "through net_func")
         # Steady state of the same train step, with CUDA events, and the
         # validation alone on the summaries fit used.
-        net = nets[-1]
         S = [series_summary(n) for n in movies]
         M = [truths[n] for n in movies]
         sampler = WindowSampler(S, M, list(movies),
@@ -1021,7 +1026,7 @@ def phase_predict(dev, main, tiled_movie):
     ``nf_submit`` and its file read back. The random net puts nearly every
     pixel above 0.5, so predict thresholds at the 98th percentile of phase
     5's prob: the masks then hold many regions, and the submission stays
-    small."""
+    small. Then ``check_custom_net``."""
     import re
 
     import numpy as np
@@ -1086,6 +1091,7 @@ def phase_predict(dev, main, tiled_movie):
             raise AssertionError(f"submission {e['dataset']}: "
                                  f"{len(e['regions'])} regions, want {want}")
         regions.append(len(e["regions"]))
+    custom = check_custom_net(dev, main, S, ckpt, out, threshold)
     views = 8 * 9 + 8 * 9
     lo, hi = np.quantile(main["prob"], [0.05, 0.95])
     print(f"predict 8x TTA through the injection points, 8 summaries at "
@@ -1098,7 +1104,99 @@ def phase_predict(dev, main, tiled_movie):
           f"threshold", flush=True)
     return {"views_per_s": views_per_s, "views": views,
             "seconds": predict_s, "threshold": threshold, "regions": regions,
-            "mask_differs_from_evaluate": float(differ.mean())}
+            "mask_differs_from_evaluate": float(differ.mean()),
+            "custom_net": custom}
+
+
+def check_custom_net(dev, main, S, ckpt, out, threshold, band=0.02):
+    """A ``UNet2DS`` subclass that counts its forwards, passed as
+    ``net_func``, runs in ``predict(augmentation=True)`` and in
+    ``evaluate_movie`` of the phase-5 movie: unfolded under "auto", its
+    masks the stock wrapper's ``fast=False`` masks except within ``band``
+    of the threshold; folded at ``fast=True``."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.models import unet_2d_summary as summ
+    from deepcalcium_torch.models.unet2d import UNet2DS
+
+    class CountingUNet2DS(UNet2DS):
+        calls = 0
+
+        def forward(self, x, *a, **kw):
+            type(self).calls += 1
+            return super().forward(x, *a, **kw)
+
+    def wrapper(net_func):
+        return summ.UNet2DSummary(
+            cpdir=str(out), compute_dtype=torch.bfloat16,
+            dataset_name_func=lambda n: n, series_summary_func=lambda n: S[n],
+            net_func=net_func, device=dev)
+
+    window = (WINDOW, WINDOW)
+    custom = wrapper(functools.partial(CountingUNet2DS, nfb=NFB))
+    stock = wrapper(UNet2DS)
+
+    def predict(model, thr, fast):
+        return model.predict(list(S), ckpt, window_shape=window,
+                             augmentation=True, threshold=thr, fast=fast)[0]
+
+    def evaluate(model, fast):
+        return model.evaluate_movie(main["movie"], model_path=ckpt,
+                                    window_shape=window, threshold=threshold,
+                                    fast=fast)
+
+    calls, folds, got = {}, {}, {}
+    for fast in ("auto", True):
+        CountingUNet2DS.calls = 0
+        with _LogArgs(summ.__name__) as records:
+            got[fast] = (predict(custom, threshold, fast),
+                         evaluate(custom, fast))
+        calls[fast] = CountingUNet2DS.calls
+        folds[fast] = sum("folded inference forward" in r.getMessage()
+                          for r in records)
+    if calls["auto"] < 2 or folds["auto"] or calls[True] < 2 \
+            or folds[True] != 2:
+        raise AssertionError(f"custom net: forwards {calls}, fold logs "
+                             f"{folds}; want unfolded under 'auto' and "
+                             f"folded at fast=True, counted in both")
+    # The stock unfolded net's masks at the threshold and at the band's
+    # edges: pixels above threshold + band and below threshold - band in
+    # the stock masks must be so in the custom net's.
+    want = predict(stock, threshold, False)
+    above = predict(stock, threshold + band, False)
+    below = predict(stock, threshold - band, False)
+    mp = got["auto"][0]
+    if any(((a > m) | (m > b)).any() for m, a, b in zip(mp, above, below)):
+        raise AssertionError("custom-net predict masks differ from the stock "
+                             "unfolded net's away from the threshold")
+    wmask, wprob = evaluate(stock, False)
+    mask, prob = got["auto"][1]
+    ev_differ = mask != wmask
+    if (ev_differ & (np.abs(wprob - threshold) >= band)).any():
+        raise AssertionError("custom-net evaluate_movie mask differs from "
+                             "the stock unfolded net's away from the "
+                             "threshold")
+    numbers = {
+        "forwards": calls, "fold_logs": folds,
+        "predict_differ": sum(int((m != w).sum()) for m, w in zip(mp, want)),
+        "evaluate_differ": int(ev_differ.sum()),
+        "evaluate_max_prob_diff": float(np.abs(prob - wprob).max()),
+        "fast_true_predict_differ_fraction": float(np.mean(
+            [(m != w).mean() for m, w in zip(got[True][0], want)]))}
+    print(f"custom net_func (a counting UNet2DS subclass, nfb={NFB} bf16): "
+          f"predict 8x TTA and evaluate_movie under 'auto' ran it unfolded "
+          f"({calls['auto']} forwards, no fold log), at fast=True folded "
+          f"({calls[True]} forwards, {folds[True]} fold logs); against the "
+          f"stock fast=False net {numbers['predict_differ']} predict pixels "
+          f"and {numbers['evaluate_differ']} evaluate pixels differ, none "
+          f"outside {band} of the threshold, largest evaluate prob "
+          f"difference {numbers['evaluate_max_prob_diff']:.3g}; folded masks "
+          f"differ from those on "
+          f"{numbers['fast_true_predict_differ_fraction']:.4%}", flush=True)
+    return numbers
 
 
 # --- The spike path: UNet1D, its wrapper, the GLM/STM baselines ------------
@@ -1721,13 +1819,58 @@ def _is_elementwise(name):
     return "elementwise_kernel" in name
 
 
+SPLIT_TRACES = 32  # the first slab of the float64 split
+
+
+def float64_split(net, folded, traces, t, dev):
+    """Largest probability difference of (a) the unfolded float32 net, (b)
+    the folded float32 net and (c) the folded net cast to float64 from the
+    unfolded net's float64 forward, on ``traces`` (padded, (B, T')) on the
+    card, cropped to ``t``: once with cuDNN's flags as they stand and once
+    with ``cudnn.deterministic``, which is restored after. (c) is the
+    fold's own float32 rounding of the weights; (a) and (b) add the float32
+    convs."""
+    import copy
+
+    import torch
+
+    x32 = torch.from_numpy(traces[:SPLIT_TRACES]).to(dev)
+    x64 = x32.double()
+    net64, fold64 = (copy.deepcopy(m).double() for m in (net, folded))
+
+    def run():
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = net64(x64)[:, :t]
+            torch.cuda.synchronize()
+            f64_ms = (time.perf_counter() - t0) * 1e3
+            unf, fol = (m(x32)[:, :t].double() for m in (net, folded))
+            return {
+                "unfolded_f32": (unf - ref).abs().max().item(),
+                "folded_f32": (fol - ref).abs().max().item(),
+                "folded_f64": (fold64(x64)[:, :t] - ref).abs().max().item(),
+                "folded_vs_unfolded_f32": (fol - unf).abs().max().item(),
+                "f64_forward_ms": f64_ms}
+
+    deterministic = torch.backends.cudnn.deterministic
+    out = {"as_set": run()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["deterministic"] = run()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
 def phase_predict1d(dev, fit_ctx, card, band=1e-4):
     """``UNet1DSegmentation.predict`` of the full-length traces from the
     best checkpoint, bf16 at batch 32: the default (``fast="auto"``, the
     folded net) and ``fast=False`` (the unfolded eval net) timed in turns,
     each with its device profile. At float32 (TF32 off) the folded masks
     equal the unfolded net's, and batch 8 gives batch 32's masks, except
-    within ``band`` of the threshold."""
+    within ``band`` of the threshold; ``float64_split`` tells what parts
+    the two float32 nets' probabilities."""
     import numpy as np
     import torch
 
@@ -1810,6 +1953,7 @@ def phase_predict1d(dev, fit_ctx, card, band=1e-4):
                 m(torch.from_numpy(padded[i:i + 32]).to(dev))
                 for i in range(0, len(padded), 32)])[:, :t].cpu().numpy()
                 for m in (net, folded))
+        split = float64_split(net, folded, padded, t, dev)
     finally:
         torch.backends.cudnn.allow_tf32 = True
     near = (np.abs(probs - 0.5) < band) | (np.abs(probs_f - 0.5) < band)
@@ -1831,6 +1975,7 @@ def phase_predict1d(dev, fit_ctx, card, band=1e-4):
                "f32_fold_vs_unfolded_differ": int(fold_differ.sum()),
                "f32_fold_max_prob_diff": max_prob_diff,
                "f32_within_band": int(near.sum()), "band": band,
+               "f64_split": split,
                "bf16_fold_vs_unfolded_differ_fraction": float((m != mu16).mean()),
                "bf16_vs_f32_differ_fraction": float((m != m32).mean()),
                "spike_fraction": float(m.mean()), "k1_launches": k1_launches,
@@ -1851,6 +1996,15 @@ def phase_predict1d(dev, fit_ctx, card, band=1e-4):
           f"{numbers['bf16_fold_vs_unfolded_differ_fraction']:.4%}, folded bf16 "
           f"vs f32 on {numbers['bf16_vs_f32_differ_fraction']:.4%}; K1 "
           f"launches {k1_launches}; {card}", flush=True)
+    for flags, d in split.items():
+        print(f"spike f32 gap split ({flags}), first {SPLIT_TRACES} padded "
+              f"traces against the unfolded net's float64 forward on the "
+              f"card: (a) unfolded f32 {d['unfolded_f32']:.3g}, (b) folded "
+              f"f32 {d['folded_f32']:.3g}, (c) folded net in float64 (the "
+              f"fold's own float32 rounding) {d['folded_f64']:.3g}; folded "
+              f"vs unfolded f32 {d['folded_vs_unfolded_f32']:.3g}; the float64 "
+              f"forward {d['f64_forward_ms']:.1f} ms; {card}",
+              flush=True)
     for mode in modes:
         p = prof[mode]
         print(f"spike predict {mode} on the device: {p['kernels']:.0f} "

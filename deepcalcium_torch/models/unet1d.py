@@ -84,7 +84,9 @@ class UNet1D(nn.Module):
             error margin of the labels); 0 turns it off.
         compute_dtype: e.g. ``torch.bfloat16``; None computes in the
             input's dtype. Parameters and BN statistics stay float32; the
-            head's max-pool and softmax run in float32.
+            head's max-pool and softmax run in the parameters' dtype, so
+            float32, and float64 in a net cast with ``.double()`` that is
+            given float64 traces.
         generator: CPU ``torch.Generator`` for the he_normal kernels; None
             draws from a generator seeded with 0. Move the module with
             ``.to(device)``.
@@ -155,12 +157,14 @@ class UNet1D(nn.Module):
                           self._cbr(f"dec{lvl}a", h, train, mesh), train, mesh)
         head = self.head_conv
         if self.folded:
-            # Float32 logits, pooled before the difference (the pool does
-            # not commute with it): softmax([a, b])[1] == sigmoid(b - a).
+            # Logits in the parameters' dtype, pooled before the difference
+            # (the pool does not commute with it):
+            # softmax([a, b])[1] == sigmoid(b - a).
             logits = B.maxpool1d_same(
-                B.conv1d(h.float(), head.weight, head.bias), self.margin + 1)
+                B.conv1d(h.to(head.weight.dtype), head.weight, head.bias),
+                self.margin + 1)
             return torch.sigmoid(logits[:, 1] - logits[:, 0])
-        logits = head(h, self.compute_dtype).float()
+        logits = head(h, self.compute_dtype).to(head.weight.dtype)
         logits = B.maxpool1d_same(logits, self.margin + 1)
         return torch.softmax(logits, dim=1)[:, -1]
 

@@ -19,6 +19,7 @@ still train and predict from summaries passed through the injection points.
 """
 
 import copy
+import functools
 import logging
 import os
 import time
@@ -120,9 +121,12 @@ class UNet2DSummary:
         dataset_name_func, series_summary_func, mask_summary_func: map a
             dataset reference (a path for the defaults) to its name, its
             (H, W) summary image and its (H, W) binary mask.
-        net_func: builds the net; called as ``net_func(compute_dtype=...,
-            generator=..., remat=...)``, e.g.
-            ``functools.partial(UNet2DS, nfb=4, drp=0.0)``.
+        net_func: builds the net that ``fit`` trains and that
+            ``evaluate_movie`` and ``predict`` run; called as
+            ``net_func(compute_dtype=..., generator=..., remat=...)``, e.g.
+            ``functools.partial(UNet2DS, nfb=4, drp=0.0)``. ``UNet2DS`` or a
+            partial of it is the stock net, which inference builds off the
+            weights.
         compute_dtype: e.g. ``torch.bfloat16`` for the convs; None = float32.
         remat: recompute conv blocks in the backward pass of ``fit``.
         device: where the net runs. The default, "cuda", raises when no card
@@ -177,15 +181,37 @@ class UNet2DSummary:
         return params, state
 
     def _inference_net(self, params, state, window_shape, fast):
-        """The eval-mode net on ``self.device``; BN folded into the convs
-        (with the sigmoid head) when ``fast`` is True, or "auto" for a
-        transpose-mode net and a window of multiples of 16."""
-        model = from_jax_params(params, state, self.compute_dtype,
-                                self.device).eval()
-        use_fold = fast is True or (
-            fast == "auto" and "up0_tconv" in params
-            and all(s % 16 == 0 for s in window_shape))
-        return model.fold() if use_fold else model
+        """The eval-mode net on ``self.device``, as the JAX package's
+        ``_resolve_apply_fn`` picks its forward. The stock net (``UNet2DS``
+        or a ``functools.partial`` of it) is built off the weights, which
+        give its width and up mode; any other ``net_func`` is built as
+        ``fit`` builds it, and the weights are loaded into it. ``fast=True``
+        folds BN into the convs with the sigmoid head (``UNet2DS.fold``,
+        exact up to float rounding) whatever the net is; "auto" folds only
+        a net whose type is ``UNet2DS`` itself, with a transpose-mode
+        checkpoint and a window of multiples of 16; anything else runs the
+        unfolded net."""
+        stock = self.net_func is UNet2DS or (
+            isinstance(self.net_func, functools.partial)
+            and self.net_func.func is UNet2DS)
+        if stock:
+            net = from_jax_params(params, state, self.compute_dtype,
+                                  self.device)
+        else:
+            net = load_jax_params_(self.net_func(
+                compute_dtype=self.compute_dtype,
+                generator=torch.Generator().manual_seed(0), remat=False),
+                params, state).to(self.device)
+        net = net.eval()
+        if fast is True or (
+                fast == "auto" and type(net) is UNet2DS
+                and "up0_tconv" in params
+                and all(s % 16 == 0 for s in window_shape)):
+            logging.getLogger(__name__).info(
+                "fast=%r: running the folded inference forward (UNet2DS.fold: "
+                "BN folded into the convs, the sigmoid head)", fast)
+            net = net.fold()
+        return net
 
     # ------------------------------------------------------------------ fit
 
@@ -521,8 +547,12 @@ class UNet2DSummary:
                 views or tiles of the forward too; every rank passes the
                 same movie and gets the same result.
             fast: fold BN into the convs and use the sigmoid head (exact up
-                to float rounding). "auto" folds for a transpose-mode net
-                and a window of multiples of 16; True/False forces.
+                to float rounding). "auto" folds only the stock net (a
+                ``UNet2DS`` itself, not a subclass) with a transpose-mode
+                checkpoint and a window of multiples of 16, as the JAX
+                package takes its fast path only for ``unet2d.apply``;
+                True folds whatever net ``net_func`` builds; False runs it
+                unfolded.
 
         # Returns
             (mask uint8 (H, W), prob float32 (H, W)) as host numpy arrays.
@@ -587,7 +617,9 @@ class UNet2DSummary:
 
         ``model_path``: a ``.ckpt`` of either package, a Keras ``.hdf5``
         (e.g. the reference's released ``unet2ds_model.hdf5``) or
-        "latest". ``fast``: as in :meth:`evaluate_movie`. ``mesh``: each
+        "latest". ``fast``: True folds the net, "auto" folds only the
+        stock net with a transpose-mode checkpoint and a window of
+        multiples of 16, False never (:meth:`evaluate_movie`). ``mesh``: each
         slab of views or tiles is split over the mesh's ranks; every rank
         gets every mask, and rank 0 alone saves the images.
         """

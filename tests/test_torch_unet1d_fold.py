@@ -15,6 +15,7 @@ built net is a ``UNet1D`` itself (the counterpart of ``net_apply_func is
 unet1d.apply``); the masks equal the JAX ``predict``'s for each ``fast``.
 """
 
+import copy
 import functools
 import logging
 
@@ -121,6 +122,26 @@ def test_fold_is_computed_in_float32_and_cast_at_the_conv(net):
     assert got.dtype == np.float32
     want = _run(from_jax_params(*net).fold(), x)
     np.testing.assert_allclose(got, want, atol=0.05)
+
+
+@pytest.mark.parametrize("margin", [4, 0])
+def test_double_net_runs_float64_end_to_end(net, margin):
+    """Cast with ``.double()``, the unfolded and the folded net run float64
+    throughout, head included: the float64 reference that splits the
+    float32 gap between the two. The float32 nets lie within TOL of it,
+    and the two float64 forwards differ only by the fold's float32
+    rounding of the weights."""
+    model = from_jax_params(*net, margin=margin)
+    folded = model.fold()
+    x = _x(64)
+    x64 = torch.from_numpy(x).double()
+    with torch.no_grad():
+        ref = copy.deepcopy(model).double()(x64).numpy()
+        fold64 = copy.deepcopy(folded).double()(x64).numpy()
+    assert ref.dtype == fold64.dtype == np.float64
+    np.testing.assert_allclose(_run(model, x), ref, **TOL)
+    np.testing.assert_allclose(_run(folded, x), ref, **TOL)
+    np.testing.assert_allclose(fold64, ref, atol=1e-6, rtol=1e-6)
 
 
 # --- predict(fast=) against the JAX package ------------------------------------
