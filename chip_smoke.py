@@ -85,7 +85,16 @@ Phases, one line each, in order:
     the four ``init_scheme``s (each kernel inside its bound, the large
     ones' std within 2%, one train step to a finite loss). In-memory
     arrays take the place of HDF5 files through each script's private
-    functions, as in phase 19.
+    functions, as in phase 19;
+22. the measuring scripts of ``examples_torch/analysis/`` through their
+    ``main([...])`` at full width (``phase_analysis``): the evaluator's
+    stages on the phase-5 movie, chained bit for bit into the FULL
+    evaluator and within 2x of its time; the UNet2DS per-block roofline in
+    the parity and the folded form (no row over its roofline, K1's mean
+    bit for bit the plain summary, each folded block within bf16 rounding
+    of its parity block); the UNet1D roofline against phase 14's step; the
+    kernel time of a 4-step dispatch of each net by kind of work; the
+    batch sweep of the 2-D train step.
 Then one JSON line with each kernel's record and the paths' numbers, the
 card's name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failure raises, so the exit code is non-zero and no
@@ -97,10 +106,15 @@ import copy
 import json
 import math
 import shutil
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+from deepcalcium_torch.utils.benchtools import (BF16_FLOPS_PER_S,
+                                                HBM_BYTES_PER_S,
+                                                card as card_line,
+                                                device_time_per_call,
+                                                kernel_table, timed_ms)
 
 REPO = Path(__file__).resolve().parent
 FRAMES = 3000  # the movie of bench.py
@@ -109,65 +123,11 @@ NFB = 32
 # The training recipe of bench.py: batch 20 of 128x128 windows.
 TRAIN_BATCH, TRAIN_WINDOW = 20, 128
 FIT_FRAMES, FIT_EPOCHS, FIT_STEPS = 1000, 2, 10
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense
 # The 1-D training recipe of bench.py: batch 20 of 4096-sample windows,
 # margin 4; the traces of the spike phases.
 SPIKE_BATCH, SPIKE_WINDOW, SPIKE_MARGIN = 20, 4096, 4
 SPIKE_TRACES, SPIKE_LEN, SPIKE_EPOCHS = 200, 30011, 2
 GLM_EPOCHS = 300
-
-
-def _timed_ms(fn, iters):
-    """Mean ms per call of ``fn`` from CUDA events, after one warm-up."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _kernel_table(fn, calls, skip=()):
-    """``(name, ms a call, launches a call)`` of every kernel that ``calls``
-    calls of ``fn`` launch, from ``torch.profiler``, the most time first.
-    Device events whose name starts with one of ``skip`` are left out."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    # The device's activity only: with the CPU's as well the profiler
-    # records every operator call and takes seconds to build its events,
-    # for the same kernel times and counts.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    # Device events, without the annotation ranges (such as the optimizer
-    # step's) that span kernels already counted.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith(tuple(skip))]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    return [(e.key, e.self_device_time_total / calls / 1e3, e.count / calls)
-            for e in kernels]
-
-
-def _device_time_per_call(fn, calls, skip=()):
-    """Kernel time and kernel launches per call of ``fn`` from
-    ``torch.profiler``, and the 5 kernels that take the most time
-    (``_kernel_table``)."""
-    kernels = _kernel_table(fn, calls, skip)
-    total_ms = sum(ms for _, ms, _ in kernels)
-    launches = sum(n for _, _, n in kernels)
-    top = [(name[:60], ms) for name, ms, _ in kernels[:5]]
-    return total_ms, launches, top
 
 
 class _LogArgs:
@@ -198,13 +158,9 @@ def phase_device():
     from deepcalcium_torch.utils.device import require_cuda
 
     dev = require_cuda()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    card = smi[dev.index if dev.index is not None else 0]
-    print(f"device: {card}", flush=True)
-    return dev, card
+    name = card_line(dev)
+    print(f"device: {name}", flush=True)
+    return dev, name
 
 
 def phase_build():
@@ -276,10 +232,10 @@ def phase_k1(dev, seed, t_full):
         if timing is None:
             nbytes = movie.numel() * movie.element_size()
             # Alternate plain and kernel on the same card.
-            p1 = _timed_ms(lambda: movie_summary(movie), 5)
-            k1 = _timed_ms(lambda: movie_summary_cuda(movie), 20)
-            k2 = _timed_ms(lambda: movie_summary_cuda(movie), 20)
-            p2 = _timed_ms(lambda: movie_summary(movie), 5)
+            p1 = timed_ms(lambda: movie_summary(movie), 5)
+            k1 = timed_ms(lambda: movie_summary_cuda(movie), 20)
+            k2 = timed_ms(lambda: movie_summary_cuda(movie), 20)
+            p2 = timed_ms(lambda: movie_summary(movie), 5)
             timing = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                       "gbps": nbytes / min(k1, k2) / 1e6,
                       "plain_gbps": nbytes / min(p1, p2) / 1e6,
@@ -433,9 +389,9 @@ def phase_main(dev, seed, t):
     evaluate = make_movie_evaluator(model, movie.shape, window=(WINDOW, WINDOW))
     views = torch.zeros((8, WINDOW, WINDOW), device=dev)
     with torch.inference_mode():
-        ms = _timed_ms(lambda: evaluate(movie), 10)
-        fwd_ms = _timed_ms(lambda: model(views), 10)
-    k1_ms = _timed_ms(lambda: movie_summary_cuda(movie), 10)
+        ms = timed_ms(lambda: evaluate(movie), 10)
+        fwd_ms = timed_ms(lambda: model(views), 10)
+    k1_ms = timed_ms(lambda: movie_summary_cuda(movie), 10)
     flops = 8 * forward_flops(WINDOW, WINDOW, NFB)
     print(f"main path time: evaluate {ms:.3f} ms ({t / ms * 1e3:.1f} "
           f"frames/s); of which K1 alone {k1_ms:.3f} ms and the 8-view "
@@ -670,8 +626,8 @@ def phase_fit(dev, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
         for _ in range(3):
             step(xb, yb, gen)
-        step_ms = _timed_ms(lambda: step(xb, yb, gen), 20)
-        device_ms, step_kernels, top = _device_time_per_call(
+        step_ms = timed_ms(lambda: step(xb, yb, gen), 20)
+        device_ms, step_kernels, top = device_time_per_call(
             lambda: step(xb, yb, gen), 5)
         fwd = trainer.make_eval_forward(net)
         val_args = (S, M, list(movies), [(WINDOW * 3 // 4, WINDOW)] * 2,
@@ -813,10 +769,10 @@ def phase_fold(dev, seed):
 
     chunk = ints(0, 2000, (FOLD_CHUNK, WINDOW, WINDOW), torch.int16)
     total, mx = fold_accumulators((WINDOW, WINDOW), torch.int16, dev)
-    p1 = _timed_ms(lambda: movie_fold(chunk, FOLD_CHUNK, total, mx), 10)
-    k1 = _timed_ms(lambda: movie_fold_cuda(chunk, FOLD_CHUNK, total, mx), 50)
-    k2 = _timed_ms(lambda: movie_fold_cuda(chunk, FOLD_CHUNK, total, mx), 50)
-    p2 = _timed_ms(lambda: movie_fold(chunk, FOLD_CHUNK, total, mx), 10)
+    p1 = timed_ms(lambda: movie_fold(chunk, FOLD_CHUNK, total, mx), 10)
+    k1 = timed_ms(lambda: movie_fold_cuda(chunk, FOLD_CHUNK, total, mx), 50)
+    k2 = timed_ms(lambda: movie_fold_cuda(chunk, FOLD_CHUNK, total, mx), 50)
+    p2 = timed_ms(lambda: movie_fold(chunk, FOLD_CHUNK, total, mx), 10)
     # The chunk read once; the int64 totals and the f32 max read and written.
     nbytes = chunk.numel() * 2 + WINDOW * WINDOW * 2 * (8 + 4)
     timing = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
@@ -879,11 +835,11 @@ def phase_stream(dev, main):
         n = min(FOLD_CHUNK, FRAMES - i)
         pinned[:n].copy_(src[i:i + n])
     stage_ms = (time.perf_counter() - t0) * 1e3
-    h2d_ms = _timed_ms(lambda: [staged.copy_(pinned, non_blocking=True)
+    h2d_ms = timed_ms(lambda: [staged.copy_(pinned, non_blocking=True)
                                 for _ in range(0, FRAMES, FOLD_CHUNK)], 3)
     total, _ = fold_accumulators((WINDOW, WINDOW), torch.int16, dev,
                                  track_max=False)
-    fold_ms = _timed_ms(lambda: [movie_fold_cuda(staged, FOLD_CHUNK, total)
+    fold_ms = timed_ms(lambda: [movie_fold_cuda(staged, FOLD_CHUNK, total)
                                  for _ in range(0, FRAMES, FOLD_CHUNK)], 3)
     numbers = {"ms": runs, "pageable_to_pinned_ms": stage_ms,
                "host_to_device_ms": h2d_ms, "folds_ms": fold_ms,
@@ -1441,8 +1397,8 @@ def phase_fit1d(dev, seed, card):
     g = torch.Generator(device=dev).manual_seed(seed)
     for _ in range(3):
         step(xb, yb, g)
-    step_ms = _timed_ms(lambda: step(xb, yb, g), 20)
-    device_ms, step_kernels, top = _device_time_per_call(
+    step_ms = timed_ms(lambda: step(xb, yb, g), 20)
+    device_ms, step_kernels, top = device_time_per_call(
         lambda: step(xb, yb, g), 5)
     flops = 3 * SPIKE_BATCH * forward_flops(SPIKE_WINDOW, NFB)
     numbers = {
@@ -1684,10 +1640,10 @@ def phase_multistep(dev, card, seed, fit_ctx, fit_numbers, fit1d_ctx,
                        "peak_gib_k1": peak_1}
                 if drp is None:
                     # (c) the timing, at the net's default dropout.
-                    ms = _timed_ms(lambda: multi(*slabs[0], gens[0]), 5) / K
+                    ms = timed_ms(lambda: multi(*slabs[0], gens[0]), 5) / K
                     # One dispatch: its 6,000-8,000 kernel records take
                     # the profiler seconds to sort.
-                    dev_ms, kernels, top = _device_time_per_call(
+                    dev_ms, kernels, top = device_time_per_call(
                         lambda: multi(*slabs[0], gens[0]), 1)
                     rec.update(step_ms=ms, device_ms=dev_ms / K,
                                kernels=kernels / K,
@@ -1923,7 +1879,7 @@ def phase_predict1d(dev, fit_ctx, card, band=1e-4):
             raise AssertionError(f"predict returned {m.shape} {m.dtype}")
     prof = {}
     for mode, fast in modes.items():
-        kernels = _kernel_table(
+        kernels = kernel_table(
             lambda: bf16.predict([name], ckpt, batch=32, fast=fast), 1)
         prof[mode] = {
             "seconds": runs[mode],
@@ -2078,7 +2034,7 @@ def phase_glm(dev, fit_ctx, card):
         if not np.array_equal(masks[0][:4][far], (probs > 0.5)[far]):
             raise AssertionError(f"{arch} masks differ from the CPU's")
         # Where an epoch's time goes: a profile of a 20-epoch fit.
-        device_ms, kernels, top = _device_time_per_call(
+        device_ms, kernels, top = device_time_per_call(
             lambda: model.fit([name], nb_epochs=20, error_margin=SPIKE_MARGIN), 1)
         numbers[arch] = {"epoch_ms": epoch_ms[0], "fit_seconds": fit_s,
                          "val_F2": mv["F2"], "trn_F2": mt["F2"],
@@ -2211,7 +2167,7 @@ def phase_segment(dev, main, card):
     setup_ms = (time.perf_counter() - t0) * 1e3
     peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
     t0 = time.perf_counter()
-    device_ms, kernels, top = _device_time_per_call(
+    device_ms, kernels, top = device_time_per_call(
         lambda: segment_movie(params, state, host, slab=SEG_SLAB), 1,
         skip=("Memcpy", "Memset"))
     profiled_s = time.perf_counter() - t0
@@ -2287,7 +2243,7 @@ def phase_stencil(dev, seed, card):
         raise AssertionError("stencil differs from the exact walk on "
                              "separated neurons")
     on_dev = torch.from_numpy(masks).to(dev)
-    ms = _timed_ms(lambda: mask_summary_stencil(on_dev), 10)
+    ms = timed_ms(lambda: mask_summary_stencil(on_dev), 10)
     numbers = {"neurons": int(masks.shape[0]), "ms": ms,
                "kept": int(got.sum()), "exact_kept": int(exact.sum())}
     print(f"stencil mask summary, {masks.shape[0]} neurons on {WINDOW}^2: "
@@ -2641,7 +2597,7 @@ def phase_parallel(dev, main, card, seed):
             # Time, plain, mesh, mesh, plain: what the collectives of one
             # rank cost a step.
             torch.backends.cudnn.deterministic = False
-            ms = [_timed_ms(lambda: s(x, y), 5)
+            ms = [timed_ms(lambda: s(x, y), 5)
                   for s in (plain_step, mesh_step, mesh_step, plain_step)]
             torch.backends.cudnn.deterministic = True
             steps[kind].update(plain_ms=[ms[0], ms[3]], mesh_ms=[ms[1], ms[2]])
@@ -3012,6 +2968,119 @@ def phase_examples(dev, main, fit_ctx, card, seed):
     return launches, numbers
 
 
+# A folded block against its parity block, in bf16 on the card, as a share
+# of the block's largest output. The two forms round differently (the fold
+# rounds each scaled kernel value, the parity form the conv's output and
+# the BN's product), so an output may land one bf16 ulp apart, and one ulp
+# is at most 2^-7 of the largest output: two ulps.
+FOLD_BF16_RTOL = 2.0 ** -6
+
+
+def phase_analysis(dev, main, fit1d, multistep, card):
+    """The measuring scripts of ``examples_torch/analysis/`` through their
+    ``main([...])`` at full width, with fewer iterations: the evaluator's
+    stages on the phase-5 movie, the UNet2DS per-block roofline (parity and
+    folded forms), the UNet1D roofline against phase 14's step, the
+    attribution of a 4-step dispatch of each net and the batch sweep.
+    Fails if a row reads over 105% of its roofline, the stage sum and the
+    FULL evaluator differ by more than 2x, the chained stages' mask or prob
+    differ from the evaluator's, the K1 row's mean is not the plain
+    summary's bit for bit, or a folded block parts from its parity block
+    beyond ``FOLD_BF16_RTOL`` of its largest output. Returns (K1 launches,
+    numbers)."""
+    import torch
+
+    from deepcalcium_torch.ops.summary import (movie_fold_cuda, movie_summary,
+                                               movie_summary_cuda)
+    from examples_torch.analysis import evaluator_stage_bench as stage_bench
+    from examples_torch.analysis import train_mfu_sweep as sweep
+    from examples_torch.analysis import train_step_profile as profile
+    from examples_torch.analysis import unet1d_roofline as roof1d
+    from examples_torch.analysis import unet_layer_bench as layer_bench
+
+    t0 = time.perf_counter()
+    movie = main["movie"]
+    parts = {}
+
+    def timed_part(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        parts[name] = round(time.perf_counter() - t, 2)
+        return out
+
+    movie_summary_cuda.launches = movie_fold_cuda.launches = 0
+    stages = timed_part("stages", stage_bench.main, ["--iters", "10"],
+                        movie=movie)
+    parity = timed_part("layers", layer_bench.main, ["--iters", "10"],
+                        movie=movie)
+    folded = timed_part("layers_fast", layer_bench.main,
+                        ["--fast", "--iters", "10"], movie=movie)
+    launches = movie_summary_cuda.launches + movie_fold_cuda.launches
+
+    (cmask, cprob), (fmask, fprob) = stages["chained"], stages["full"]
+    if not (torch.equal(cmask, fmask) and torch.equal(cprob, fprob)):
+        raise AssertionError("the chained stages differ from "
+                             "make_movie_evaluator")
+    ratio = stages["full_ms"] / stages["stage_sum_ms"]
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError(f"FULL evaluate {stages['full_ms']:.3f} ms "
+                             f"against a stage sum of "
+                             f"{stages['stage_sum_ms']:.3f} ms")
+    over = [(r["block"], r["roof_ms"] / r["ms"])
+            for r in parity["rows"] + folded["rows"]
+            if r["roof_ms"] is not None and r["roof_ms"] > 1.05 * r["ms"]]
+    if over:
+        raise AssertionError(f"rows faster than their roofline: {over}")
+    if not torch.equal(parity["summary"], movie_summary(movie)[0]):
+        raise AssertionError("the K1 row's mean differs from movie_summary")
+    diffs = timed_part("fold_check", layer_bench.fold_diffs,
+                       layer_bench.census(), dev)
+    fold_rel = {k: d / y for k, (d, y) in diffs.items()}
+    worst = max(fold_rel.items(), key=lambda kv: kv[1])
+    if worst[1] > FOLD_BF16_RTOL:
+        raise AssertionError(f"folded block {worst[0]} parts from its parity "
+                             f"block by {worst[1]:.3e} of its largest output")
+
+    floor1d = timed_part("roofline1d", roof1d.main,
+                         ["--step-ms", str(fit1d["train1d_step_ms"])])
+    prof = {net: timed_part(f"profile_{net}", profile.main,
+                            ["--net", net, "--k", "4", "--top", "10"])
+            for net in ("unet2d", "unet1d")}
+    sweep_rows = timed_part("sweep", sweep.main, ["--k", "4"])["rows"]
+    seconds = time.perf_counter() - t0
+    step1d_k4 = multistep["train1d_step_k4_ms"]
+    print(f"analysis: chained stages bit for bit make_movie_evaluator, FULL "
+          f"{stages['full_ms']:.3f} ms against a stage sum of "
+          f"{stages['stage_sum_ms']:.3f} ms; no row over its roofline; the "
+          f"K1 row's mean bit for bit movie_summary; folded blocks within "
+          f"{worst[1]:.2e} of their parity blocks' largest output (worst "
+          f"{worst[0]}); the 1-D conv floor {floor1d['floor_ms']:.4f} ms a "
+          f"step against {fit1d['train1d_step_ms']:.3f} ms (K=1) and "
+          f"{step1d_k4:.3f} ms (K=4); K1 launches {launches}; {seconds:.1f} s "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in parts.items())}); {card}",
+          flush=True)
+
+    def slim(rows, keys):
+        return [{k: r[k] for k in keys} for r in rows]
+
+    numbers = {
+        "stages": slim(stages["rows"], ("stage", "ms", "min_ms", "max_ms")),
+        "stage_sum_ms": stages["stage_sum_ms"], "full_ms": stages["full_ms"],
+        "layers": slim(parity["rows"], ("block", "ms", "roof_ms")),
+        "layers_fast": slim(folded["rows"], ("block", "ms", "roof_ms")),
+        "fold_max_rel": fold_rel,
+        "floor1d_ms": floor1d["floor_ms"],
+        "profile": {net: {"step_ms": p["step_ms"], "device_ms": p["device_ms"],
+                          "buckets": {r["name"]: r["ms_per_step"]
+                                      for r in p["rows"]
+                                      if r["what"] == "bucket"}}
+                    for net, p in prof.items()},
+        "sweep": slim(sweep_rows, ("row", "step_ms", "tflops", "device_ms",
+                                   "kernels", "idle")),
+        "seconds": seconds, "part_seconds": parts}
+    return launches, numbers
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3055,6 +3124,8 @@ def main(argv=None):
                                    card, args.seed)
     ex_launches, examples = timed("examples", phase_examples, dev, main_ctx,
                                   fit_ctx, card, args.seed)
+    an_launches, analysis = timed("analysis", phase_analysis, dev, main_ctx,
+                                  fit1d, multistep, card)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "deepcalcium_tpu"))
     if bad:
@@ -3070,7 +3141,8 @@ def main(argv=None):
                "predict1d": predict1d["k1_launches"],
                "glm": glm["k1_launches"],
                "segment": segment["k1_launches"], "cli": cli_launches,
-               "parallel": par_launches, "examples": ex_launches}
+               "parallel": par_launches, "examples": ex_launches,
+               "analysis": an_launches}
     print(json.dumps({"kernels": [{
         "name": "K1 movie_summary_cuda (+ fold entry movie_fold_cuda)",
         "route": "cuda",
@@ -3090,6 +3162,7 @@ def main(argv=None):
         "multistep": multistep,
         "predict1d": predict1d, "glm": glm, "segment": segment,
         "stencil": stencil, "cli": cli, "parallel": parallel, "examples": examples,
+        "analysis": analysis,
         "card": card,
         "phase_seconds": phase_s, "seconds": time.perf_counter() - t0}))
     print(card)

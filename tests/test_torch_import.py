@@ -36,6 +36,7 @@ def test_port_and_chip_smoke_never_import_jax():
         "import deepcalcium_torch.train.sampler\n"
         "import deepcalcium_torch.train.trainer\n"
         "import deepcalcium_torch.utils.profiling\n"
+        "import deepcalcium_torch.utils.benchtools\n"
         "import deepcalcium_torch.utils.runtime\n"
         "import deepcalcium_torch.utils.visualization\n"
         "import deepcalcium_torch.utils.config\n"
@@ -80,6 +81,12 @@ def test_port_and_chip_smoke_never_import_jax():
     "examples_torch.analysis.dataset_stats",
     "examples_torch.analysis.activation_maps",
     "examples_torch.analysis.spike_stats",
+    "deepcalcium_torch.utils.benchtools",
+    "examples_torch.analysis.evaluator_stage_bench",
+    "examples_torch.analysis.unet_layer_bench",
+    "examples_torch.analysis.unet1d_roofline",
+    "examples_torch.analysis.train_step_profile",
+    "examples_torch.analysis.train_mfu_sweep",
 ])
 def test_module_imports_no_jax_and_no_h5py(module):
     """Each module alone, in a fresh interpreter: nothing of JAX or of the

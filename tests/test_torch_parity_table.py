@@ -125,15 +125,19 @@ def test_what_is_not_ported_gives_its_reason(table):
     """The decided list of ROADMAP.md, each with a reason beside it."""
     for name in ("apply_fast_w", "apply_fast_t", "apply_fast_w_train",
                  "make_multi_step", "rbg", "_up_dilated", "DROPOUT_REMAT_BWD",
-                 "DROPOUT_FUSED_DRAW", "BN_STATS_F32", "benchtools.py",
-                 "train_step_profile.py", "tpu_microbench.py", "auto_backend",
-                 "_wait_for_device", "slope_timing.py", "unet1d_roofline.py",
-                 "train_mfu_sweep.py", "enable_compile_cache"):
+                 "DROPOUT_FUSED_DRAW", "BN_STATS_F32", "tpu_microbench.py",
+                 "auto_backend", "_wait_for_device", "slope_timing.py",
+                 "enable_compile_cache"):
         assert name in table, name
+    # The part of benchtools.py that stays unported, with its reason.
+    assert re.search(r"\*\*not ported\*\*: `enable_compile_cache`[^|]*"
+                     r"no XLA cache on the card", table)
     assert table.count("**not ported**") >= 9
     analysis = os.path.join(REPO, "examples", "analysis")
     ported = {"activation_maps.py", "dataset_stats.py", "spike_stats.py",
-              "hyperparam_marginals.py"}
+              "hyperparam_marginals.py", "evaluator_stage_bench.py",
+              "unet_layer_bench.py", "unet1d_roofline.py",
+              "train_step_profile.py", "train_mfu_sweep.py"}
     for name in sorted(os.listdir(analysis)):
         if name.endswith(".py") and name != "__init__.py":
             assert f"{name}" in table, name
