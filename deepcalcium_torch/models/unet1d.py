@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from deepcalcium_torch.models import blocks as B
+from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet1D", "from_jax_params",
            "to_jax_params", "load_jax_params_", "jax_tree", "torch_tensors",
@@ -247,9 +248,14 @@ def from_jax_params(params, state, compute_dtype=None, device=None,
     (numpy or JAX arrays, or CPU tensors); nfb is read off the shapes.
     ``kwargs`` go to ``UNet1D`` (``margin``, ``drp``)."""
     nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
-    model = load_jax_params_(UNet1D(nfb, compute_dtype=compute_dtype,
-                                    **kwargs), params, state)
-    return model.to(device) if device is not None else model
+    with span("net.init"):
+        model = UNet1D(nfb, compute_dtype=compute_dtype, **kwargs)
+    with span("net.load"):
+        load_jax_params_(model, params, state)
+    if device is None:
+        return model
+    with span("net.upload"):
+        return model.to(device)
 
 
 def to_jax_params(model: UNet1D):

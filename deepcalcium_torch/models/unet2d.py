@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from deepcalcium_torch.models import blocks as B
 from deepcalcium_torch.models.blocks import fold_bn
+from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet2DS", "fold_bn",
            "from_jax_params", "to_jax_params", "load_jax_params_",
@@ -300,9 +301,14 @@ def from_jax_params(params, state, compute_dtype=None, device=None,
     shapes. ``kwargs`` go to ``UNet2DS`` (``drp``, ``remat``)."""
     nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
     up_mode = "transpose" if "up0_tconv" in params else "upsampling"
-    model = load_jax_params_(UNet2DS(nfb, up_mode, compute_dtype, **kwargs),
-                             params, state)
-    return model.to(device) if device is not None else model
+    with span("net.init"):
+        model = UNet2DS(nfb, up_mode, compute_dtype, **kwargs)
+    with span("net.load"):
+        load_jax_params_(model, params, state)
+    if device is None:
+        return model
+    with span("net.upload"):
+        return model.to(device)
 
 
 def to_jax_params(model: UNet2DS):

@@ -40,6 +40,7 @@ from deepcalcium_torch.train.sampler import (Prefetcher, make_put_fn,
                                              stack_batches)
 from deepcalcium_torch.utils.config import checkpoints_dir
 from deepcalcium_torch.utils.device import require_cuda
+from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["UNet1DSegmentation", "get_dataset_attrs", "get_dataset_traces",
            "get_dataset_spikes", "maxpool_labels", "margin_metrics"]
@@ -472,36 +473,50 @@ class UNet1DSegmentation:
         mesh's ranks and gathered; every rank gets every mask.
         """
         check_mesh(mesh)
-        if str(model_path).endswith((".hdf5", ".h5")):
-            from deepcalcium_torch.interop.keras_import import load_unet1d_keras
+        with span("predict"):
+            with span("predict.ckpt_read"):
+                if str(model_path).endswith((".hdf5", ".h5")):
+                    from deepcalcium_torch.interop.keras_import import \
+                        load_unet1d_keras
 
-            params, state = load_unet1d_keras(model_path)
-        else:
-            ckpt = read_checkpoint(model_path)
-            params, state = ckpt["params"], ckpt["state"]
-        if self.net_func is UNet1D:
-            net = from_jax_params(params, state, self.compute_dtype,
-                                  margin=int(error_margin))
-        else:
-            net = load_jax_params_(self.net_func(
-                compute_dtype=self.compute_dtype,
-                generator=torch.Generator().manual_seed(0),
-                margin=int(error_margin)), params, state)
-        net = net.to(self.device).eval()
-        if fast is True or (fast == "auto" and type(net) is UNet1D):
-            logging.getLogger(__name__).info(
-                "fast=%r: running the folded inference forward (UNet1D.fold: "
-                "BN folded into the convs, the sigmoid head)", fast)
-            net = net.fold()
-        fwd = T.make_eval_forward(net, mesh)
+                    params, state = load_unet1d_keras(model_path)
+                else:
+                    ckpt = read_checkpoint(model_path)
+                    params, state = ckpt["params"], ckpt["state"]
+            with span("predict.build"):
+                if self.net_func is UNet1D:
+                    net = from_jax_params(params, state, self.compute_dtype,
+                                          self.device,
+                                          margin=int(error_margin))
+                else:
+                    net = load_jax_params_(self.net_func(
+                        compute_dtype=self.compute_dtype,
+                        generator=torch.Generator().manual_seed(0),
+                        margin=int(error_margin)), params, state).to(
+                            self.device)
+                net = net.eval()
+                if fast is True or (fast == "auto" and type(net) is UNet1D):
+                    logging.getLogger(__name__).info(
+                        "fast=%r: running the folded inference forward "
+                        "(UNet1D.fold: BN folded into the convs, the sigmoid "
+                        "head)", fast)
+                    with span("net.fold"):
+                        net = net.fold()
+                fwd = T.make_eval_forward(net, mesh)
 
-        spikes_pred_all, names_all = [], []
-        for p in dataset_paths:
-            names_all.append(self.dataset_attrs_func(p)["name"])
-            traces = np.asarray(self.dataset_traces_func(p), np.float32)
-            padded, t = _pad_to_multiple(traces, 16)
-            out = _run_batched(fwd, torch.from_numpy(padded).to(self.device),
-                               max_batch=batch, mesh=mesh)
-            spikes_pred = out[:, :t].cpu().numpy()
-            spikes_pred_all.append((spikes_pred > threshold).astype(np.uint8))
-        return spikes_pred_all, names_all
+            spikes_pred_all, names_all = [], []
+            for p in dataset_paths:
+                with span("predict.traces"):
+                    names_all.append(self.dataset_attrs_func(p)["name"])
+                    traces = np.asarray(self.dataset_traces_func(p),
+                                        np.float32)
+                    padded, t = _pad_to_multiple(traces, 16)
+                with span("predict.upload"):
+                    x = torch.from_numpy(padded).to(self.device)
+                with span("predict.forward"):
+                    out = _run_batched(fwd, x, max_batch=batch, mesh=mesh)
+                with span("predict.fetch"):
+                    spikes_pred = out[:, :t].cpu().numpy()
+                    spikes_pred_all.append(
+                        (spikes_pred > threshold).astype(np.uint8))
+            return spikes_pred_all, names_all

@@ -49,7 +49,7 @@ from deepcalcium_torch.train.sampler import (Prefetcher, WindowSampler,
                                              make_put_fn, stack_batches)
 from deepcalcium_torch.utils.config import checkpoints_dir
 from deepcalcium_torch.utils.device import require_cuda
-from deepcalcium_torch.utils.profiling import trace
+from deepcalcium_torch.utils.profiling import span, trace
 from deepcalcium_torch.utils.runtime import funcname, phase_timer
 
 __all__ = ["UNet2DSummary", "summarize_series", "summarize_mask",
@@ -210,7 +210,8 @@ class UNet2DSummary:
             logging.getLogger(__name__).info(
                 "fast=%r: running the folded inference forward (UNet2DS.fold: "
                 "BN folded into the convs, the sigmoid head)", fast)
-            net = net.fold()
+            with span("net.fold"):
+                net = net.fold()
         return net
 
     # ------------------------------------------------------------------ fit
@@ -237,7 +238,11 @@ class UNet2DSummary:
         of the weights. ``lr_schedule``: "plateau", "cosine" (to 1e-4 over
         ``nb_epochs``) or a callable ``f(next_epoch) -> lr``.
         ``weight_decay`` > 0 trains with AdamW. ``profile_dir``: a
-        ``torch.profiler`` trace of epoch 1 (epoch 0 if it is the only one).
+        ``torch.profiler`` trace of epoch 1 (epoch 0 if it is the only one),
+        which shows the phases as the program's spans
+        (``utils.profiling.span``: ``fit.prefetch_wait``, ``fit.step``,
+        ``fit.metrics_sync``, ``fit.validate``, ``fit.log``,
+        ``fit.checkpoint``, ``fit.callbacks``).
         ``model_path`` (a ``.ckpt`` of either package, a Keras ``.hdf5``,
         or "latest") warm starts; with ``proceed=True`` Adam's moments, step
         count and learning rate resume too from a ``.ckpt`` (a Keras file
@@ -314,169 +319,188 @@ class UNet2DSummary:
                 "prng_impl=%r, fast_train=%r: PRNG and lane-packing levers "
                 "of the JAX package; no-ops here (the torch Philox stream, "
                 "the plain forward)", prng_impl, fast_train)
-        loss_fn = L.LOSSES[loss] if isinstance(loss, str) else loss
-        if model_path:
-            model_path = self._resolve(model_path)
-            if not os.path.exists(model_path):
-                raise FileNotFoundError(f"model_path {model_path} does not exist")
-            logger.info("starting from checkpoint %s", model_path)
-        cpdir = self._cpdir()
+        with span("fit"):
+            loss_fn = L.LOSSES[loss] if isinstance(loss, str) else loss
+            if model_path:
+                model_path = self._resolve(model_path)
+                if not os.path.exists(model_path):
+                    raise FileNotFoundError(f"model_path {model_path} does not exist")
+                logger.info("starting from checkpoint %s", model_path)
+            cpdir = self._cpdir()
 
-        # Summaries.
-        names = [self.dataset_name_func(p) for p in dataset_paths]
-        S = [np.asarray(self.series_summary_func(p)) for p in dataset_paths]
-        M = [np.asarray(self.mask_summary_func(p)) for p in dataset_paths]
+            with span("fit.summaries"):
+                names = [self.dataset_name_func(p) for p in dataset_paths]
+                S = [np.asarray(self.series_summary_func(p))
+                     for p in dataset_paths]
+                M = [np.asarray(self.mask_summary_func(p))
+                     for p in dataset_paths]
 
-        # Row bands: train from the top, validate at the bottom.
-        yctrn = [(0, int(s.shape[0] * prop_trn)) for s in S]
-        ycval = [(s.shape[0] - int(s.shape[0] * prop_val), s.shape[0]) for s in S]
-        for nm, s_ in zip(names, S):
-            if int(s_.shape[0] * prop_val) < 1 or int(s_.shape[0] * prop_trn) < 1:
-                raise ValueError(
-                    f"{nm}: prop_trn={prop_trn}/prop_val={prop_val} round "
-                    f"to an empty row band on a {s_.shape[0]}-row image")
+            with span("fit.setup"):
+                # Row bands: train from the top, validate at the bottom.
+                yctrn = [(0, int(s.shape[0] * prop_trn)) for s in S]
+                ycval = [(s.shape[0] - int(s.shape[0] * prop_val), s.shape[0])
+                         for s in S]
+                for nm, s_ in zip(names, S):
+                    if (int(s_.shape[0] * prop_val) < 1
+                            or int(s_.shape[0] * prop_trn) < 1):
+                        raise ValueError(
+                            f"{nm}: prop_trn={prop_trn}/prop_val={prop_val} round "
+                            f"to an empty row band on a {s_.shape[0]}-row image")
 
-        # Model + optimizer. The initial weights are drawn on the CPU from
-        # the seed, so a seed gives the same net on every device.
-        net = self.net_func(compute_dtype=self.compute_dtype,
-                            generator=torch.Generator().manual_seed(seed),
-                            remat=self.remat)
-        opt_state = None
-        if model_path and _is_keras(model_path):
-            load_jax_params_(net, *self._load_params(model_path))
-            if proceed:
-                logger.info("proceed=True with a Keras checkpoint: weights "
-                            "resume, Adam starts fresh")
-        elif model_path:
-            ckpt = read_checkpoint(model_path)
-            load_jax_params_(net, ckpt["params"], ckpt["state"])
-            opt_state = ckpt["opt_state"]
-        net.to(self.device)
-        optimizer = T.make_optimizer(net, learning_rate,
-                                     weight_decay=weight_decay)
-        if proceed and opt_state:
-            T.load_optax_state_(net, optimizer, opt_state)
+                # Model + optimizer. The initial weights are drawn on the CPU from
+                # the seed, so a seed gives the same net on every device.
+                net = self.net_func(compute_dtype=self.compute_dtype,
+                                    generator=torch.Generator().manual_seed(seed),
+                                    remat=self.remat)
+                opt_state = None
+                if model_path and _is_keras(model_path):
+                    load_jax_params_(net, *self._load_params(model_path))
+                    if proceed:
+                        logger.info("proceed=True with a Keras checkpoint: weights "
+                                    "resume, Adam starts fresh")
+                elif model_path:
+                    ckpt = read_checkpoint(model_path)
+                    load_jax_params_(net, ckpt["params"], ckpt["state"])
+                    opt_state = ckpt["opt_state"]
+                net.to(self.device)
+                optimizer = T.make_optimizer(net, learning_rate,
+                                             weight_decay=weight_decay)
+                if proceed and opt_state:
+                    T.load_optax_state_(net, optimizer, opt_state)
 
-        sampler = WindowSampler(S, M, names, yctrn, shape_trn,
-                                nb_max_augment=nb_max_augment, seed=seed)
-        batches = sampler.batches(batch_size_trn)
-        if kdisp > 1:
-            # The producer thread stacks K batches into one slab a dispatch.
-            batches = stack_batches(batches, kdisp)
-        prefetch = Prefetcher(batches,
-                              put_fn=make_put_fn(self.device, mesh, kdisp))
+                sampler = WindowSampler(S, M, names, yctrn, shape_trn,
+                                        nb_max_augment=nb_max_augment, seed=seed)
+                batches = sampler.batches(batch_size_trn)
+                if kdisp > 1:
+                    # The producer thread stacks K batches into one slab a dispatch.
+                    batches = stack_batches(batches, kdisp)
+                prefetch = Prefetcher(batches,
+                                      put_fn=make_put_fn(self.device, mesh, kdisp))
 
-        tic = int(time.time())
-        if mesh is not None:
-            tic = agree(mesh, tic)  # one name for the files on every rank
-        csvlog = (CSVMetricsLogger(os.path.join(cpdir, f"{tic}_metrics.csv"))
-                  if writes else None)
-        if lr_schedule == "plateau":
-            plateau = T.ReduceLROnPlateau(factor=0.5, patience=5, min_lr=1e-4)
-            next_lr = lambda epoch, agg, lr: plateau.update(agg.get("F1", 0.0), lr)
-        elif lr_schedule == "cosine":
-            cosine = T.CosineDecay(learning_rate, nb_epochs, min_lr=1e-4)
-            next_lr = lambda epoch, agg, lr: cosine.lr_at(epoch + 1)
-        else:
-            next_lr = lambda epoch, agg, lr: float(lr_schedule(epoch + 1))
-        # Dropout keep-masks are drawn on the device from their own stream.
-        dropout_gen = torch.Generator(device=self.device).manual_seed(
-            seed + 1 + (mesh.rank if mesh is not None else 0))
+                tic = int(time.time())
+                if mesh is not None:
+                    tic = agree(mesh, tic)  # one name for the files on every rank
+                csvlog = (CSVMetricsLogger(os.path.join(cpdir, f"{tic}_metrics.csv"))
+                          if writes else None)
+                if lr_schedule == "plateau":
+                    plateau = T.ReduceLROnPlateau(factor=0.5, patience=5, min_lr=1e-4)
+                    next_lr = lambda epoch, agg, lr: plateau.update(agg.get("F1", 0.0), lr)
+                elif lr_schedule == "cosine":
+                    cosine = T.CosineDecay(learning_rate, nb_epochs, min_lr=1e-4)
+                    next_lr = lambda epoch, agg, lr: cosine.lr_at(epoch + 1)
+                else:
+                    next_lr = lambda epoch, agg, lr: float(lr_schedule(epoch + 1))
+                # Dropout keep-masks are drawn on the device from their own stream.
+                dropout_gen = torch.Generator(device=self.device).manual_seed(
+                    seed + 1 + (mesh.rank if mesh is not None else 0))
 
-        best_f1, best_path = -1.0, None
-        history: dict[str, list] = {}
-        eval_net = net
-        if ema_decay:
-            eval_net = copy.deepcopy(net)
-            w0 = float(ema_decay) ** (nb_steps_trn * nb_epochs)
-            if w0 > 0.05:
-                logger.warning(
-                    "ema_decay=%s over %d total steps keeps %.0f%% of the "
-                    "INIT weights in the average; use decay <= %.4f or more "
-                    "steps, or expect near-zero validation metrics.",
-                    ema_decay, nb_steps_trn * nb_epochs, 100 * w0,
-                    0.05 ** (1.0 / max(1, nb_steps_trn * nb_epochs)))
-        if kdisp > 1:
-            # The average rides inside the K steps, as in the JAX scan.
-            step = T.make_multi_step(
-                net, loss_fn, optimizer, kdisp,
-                ema=eval_net if ema_decay else None,
-                ema_decay=ema_decay or None, mesh=mesh)
-        else:
-            step = T.make_train_step(net, loss_fn, optimizer, mesh=mesh)
-        eval_fwd = T.make_eval_forward(eval_net, mesh)
-        # Profile the first epoch after cuDNN's first calls.
-        profile_epoch = 1 if nb_epochs > 1 else 0
-
-        try:
-            for epoch in range(nb_epochs):
-                t0 = time.time()
-                # Metrics stay on the device until the epoch ends.
-                step_metrics: list[dict] = []
-                with trace(profile_dir if epoch == profile_epoch else None):
-                    for _ in range(nb_steps_trn // kdisp):
-                        sb, mb = next(prefetch)
-                        step_metrics.append(step(sb, mb, dropout_gen))
-                        if ema_decay and kdisp == 1:
-                            T.ema_update(eval_net.parameters(),
-                                         net.parameters(), ema_decay)
-                # One sync per epoch, one row a step; keys in sorted order,
-                # as the JAX package's device_get of a dict returns them.
-                keys = sorted(step_metrics[0])
-                fetched = T.metric_rows(step_metrics, keys).cpu().numpy()
-                agg: dict[str, float] = {
-                    k: float(np.mean(fetched[:, i])) for i, k in enumerate(keys)}
-
+                best_f1, best_path = -1.0, None
+                history: dict[str, list] = {}
+                eval_net = net
                 if ema_decay:
-                    # The average covers the parameters; the BN running
-                    # statistics are the trained net's.
-                    for b_avg, b in zip(eval_net.buffers(), net.buffers()):
-                        b_avg.copy_(b)
-                vmet, name_to_f1 = self._validate(
-                    eval_fwd, S, M, names, ycval, shape_val, epoch, mesh)
-                agg.update(vmet)
-                if not np.isfinite(agg["loss"]):
-                    raise FloatingPointError(
-                        f"non-finite training loss at epoch {epoch}: "
-                        f"{agg['loss']} (lr={T.current_lr(optimizer)})")
-                agg["lr"] = T.current_lr(optimizer)
-                agg["epoch_seconds"] = time.time() - t0
-                for k, v in agg.items():
-                    history.setdefault(k, []).append(v)
-                if writes:
-                    csvlog.append(epoch, agg)
-                    plot_metrics_grid(csvlog.history,
-                                      os.path.join(cpdir, f"{tic}_metrics.png"),
-                                      title=f"epoch {epoch}")
-                logger.info(
-                    "epoch %d: loss=%.4f F1=%.4f val_nf_f1_mean=%.4f (%.1fs)",
-                    epoch, agg["loss"], agg.get("F1", 0.0),
-                    agg["val_nf_f1_mean"], agg["epoch_seconds"])
+                    eval_net = copy.deepcopy(net)
+                    w0 = float(ema_decay) ** (nb_steps_trn * nb_epochs)
+                    if w0 > 0.05:
+                        logger.warning(
+                            "ema_decay=%s over %d total steps keeps %.0f%% of the "
+                            "INIT weights in the average; use decay <= %.4f or more "
+                            "steps, or expect near-zero validation metrics.",
+                            ema_decay, nb_steps_trn * nb_epochs, 100 * w0,
+                            0.05 ** (1.0 / max(1, nb_steps_trn * nb_epochs)))
+                if kdisp > 1:
+                    # The average rides inside the K steps, as in the JAX scan.
+                    step = T.make_multi_step(
+                        net, loss_fn, optimizer, kdisp,
+                        ema=eval_net if ema_decay else None,
+                        ema_decay=ema_decay or None, mesh=mesh)
+                else:
+                    step = T.make_train_step(net, loss_fn, optimizer, mesh=mesh)
+                eval_fwd = T.make_eval_forward(eval_net, mesh)
+            # Profile the first epoch after cuDNN's first calls.
+            profile_epoch = 1 if nb_epochs > 1 else 0
 
-                cp = os.path.join(
-                    cpdir,
-                    f"{tic}_model_{epoch:02d}_{agg['val_nf_f1_mean']:.3f}.ckpt")
-                if writes:
-                    params, state = to_jax_params(eval_net)
-                    save_checkpoint(
-                        cp, params, state, T.optax_state(net, optimizer),
-                        meta={"epoch": epoch,
-                              **{k: float(v) for k, v in agg.items()}})
-                if agg["val_nf_f1_mean"] > best_f1:
-                    best_f1, best_path = agg["val_nf_f1_mean"], cp
+            try:
+                for epoch in range(nb_epochs):
+                    t0 = time.time()
+                    # Metrics stay on the device until the epoch ends.
+                    step_metrics: list[dict] = []
+                    with trace(profile_dir if epoch == profile_epoch else None):
+                        for _ in range(nb_steps_trn // kdisp):
+                            with span("fit.prefetch_wait"):
+                                sb, mb = next(prefetch)
+                            with span("fit.step"):
+                                step_metrics.append(step(sb, mb, dropout_gen))
+                                if ema_decay and kdisp == 1:
+                                    T.ema_update(eval_net.parameters(),
+                                                 net.parameters(), ema_decay)
+                    # One sync per epoch, one row a step; keys in sorted order,
+                    # as the JAX package's device_get of a dict returns them.
+                    with span("fit.metrics_sync"):
+                        keys = sorted(step_metrics[0])
+                        fetched = T.metric_rows(step_metrics,
+                                                keys).cpu().numpy()
+                        agg: dict[str, float] = {
+                            k: float(np.mean(fetched[:, i]))
+                            for i, k in enumerate(keys)}
 
-                T.set_lr(optimizer,
-                         next_lr(epoch, agg, T.current_lr(optimizer)))
-                if adaptive_sampling:
-                    sampler.reweight(name_to_f1)
-                for cb in epoch_callbacks:
-                    cb(epoch, agg)
-        finally:
-            prefetch.close()
-        if mesh is not None:
-            # No rank returns before rank 0 has written the last checkpoint.
-            mesh.barrier()
-        return history, best_path
+                    with span("fit.validate"):
+                        if ema_decay:
+                            # The average covers the parameters; the BN
+                            # running statistics are the trained net's.
+                            for b_avg, b in zip(eval_net.buffers(),
+                                                net.buffers()):
+                                b_avg.copy_(b)
+                        vmet, name_to_f1 = self._validate(
+                            eval_fwd, S, M, names, ycval, shape_val, epoch,
+                            mesh)
+                    agg.update(vmet)
+                    if not np.isfinite(agg["loss"]):
+                        raise FloatingPointError(
+                            f"non-finite training loss at epoch {epoch}: "
+                            f"{agg['loss']} (lr={T.current_lr(optimizer)})")
+                    agg["lr"] = T.current_lr(optimizer)
+                    agg["epoch_seconds"] = time.time() - t0
+                    for k, v in agg.items():
+                        history.setdefault(k, []).append(v)
+                    with span("fit.log"):
+                        if writes:
+                            csvlog.append(epoch, agg)
+                            plot_metrics_grid(
+                                csvlog.history,
+                                os.path.join(cpdir, f"{tic}_metrics.png"),
+                                title=f"epoch {epoch}")
+                        logger.info(
+                            "epoch %d: loss=%.4f F1=%.4f val_nf_f1_mean=%.4f "
+                            "(%.1fs)", epoch, agg["loss"], agg.get("F1", 0.0),
+                            agg["val_nf_f1_mean"], agg["epoch_seconds"])
+
+                    cp = os.path.join(
+                        cpdir,
+                        f"{tic}_model_{epoch:02d}_{agg['val_nf_f1_mean']:.3f}.ckpt")
+                    with span("fit.checkpoint"):
+                        if writes:
+                            params, state = to_jax_params(eval_net)
+                            save_checkpoint(
+                                cp, params, state,
+                                T.optax_state(net, optimizer),
+                                meta={"epoch": epoch,
+                                      **{k: float(v) for k, v in agg.items()}})
+                    if agg["val_nf_f1_mean"] > best_f1:
+                        best_f1, best_path = agg["val_nf_f1_mean"], cp
+
+                    T.set_lr(optimizer,
+                             next_lr(epoch, agg, T.current_lr(optimizer)))
+                    if adaptive_sampling:
+                        sampler.reweight(name_to_f1)
+                    with span("fit.callbacks"):
+                        for cb in epoch_callbacks:
+                            cb(epoch, agg)
+            finally:
+                prefetch.close()
+            if mesh is not None:
+                # No rank returns before rank 0 has written the last checkpoint.
+                mesh.barrier()
+            return history, best_path
 
     def _validate(self, eval_fwd, S, M, names, ycval, shape_val, epoch,
                   mesh=None):
@@ -498,17 +522,19 @@ class UNet2DSummary:
                 views.append(fs)
                 view_meta.append((fm, name, (yy.min(), yy.max(), xx.min(), xx.max())))
 
-        probs = predict_batched(eval_fwd, views, self.device, window=shape_val,
-                                mesh=mesh)
+        with span("fit.validate.forward"):
+            probs = predict_batched(eval_fwd, views, self.device,
+                                    window=shape_val, mesh=mesh)
         pp, rr, ff = [], [], []
         name_to_f1: dict[str, list] = {}
-        for mp, (m, name, (y0, y1, x0, x1)) in zip(probs, view_meta):
-            p, r, _, _, f = nf_mask_metrics(
-                m[y0:y1, x0:x1], np.round(mp[y0:y1, x0:x1]))
-            pp.append(p)
-            rr.append(r)
-            ff.append(f)
-            name_to_f1.setdefault(name, []).append(f)
+        with span("fit.validate.score"):
+            for mp, (m, name, (y0, y1, x0, x1)) in zip(probs, view_meta):
+                p, r, _, _, f = nf_mask_metrics(
+                    m[y0:y1, x0:x1], np.round(mp[y0:y1, x0:x1]))
+                pp.append(p)
+                rr.append(r)
+                ff.append(f)
+                name_to_f1.setdefault(name, []).append(f)
 
         eps = 1e-4 * epoch if epoch else 0.0
         return {
@@ -561,42 +587,49 @@ class UNet2DSummary:
         if params is None:
             if model_path is None:
                 raise ValueError("need model_path or params+state")
-            params, state = self._load_params(model_path)
         elif state is None:
             raise ValueError("params given without state: pass both (state "
                              "carries the BN moving statistics)")
-        model = self._inference_net(params, state, window_shape, fast)
-        kw = dict(window=window_shape, tta=tta, threshold=threshold,
-                  device=self.device, mesh=mesh)
+        with span("evaluate_movie"):
+            if params is None:
+                with span("evaluate_movie.load"):
+                    params, state = self._load_params(model_path)
+            with span("evaluate_movie.build"):
+                model = self._inference_net(params, state, window_shape, fast)
+            kw = dict(window=window_shape, tta=tta, threshold=threshold,
+                      device=self.device, mesh=mesh)
 
-        def oversized(h, w):
-            return h > window_shape[0] or w > window_shape[1]
+            def oversized(h, w):
+                return h > window_shape[0] or w > window_shape[1]
 
-        if isinstance(movie, (str, os.PathLike)):
-            import h5py
+            if isinstance(movie, (str, os.PathLike)):
+                import h5py
 
-            with h5py.File(movie, "r") as fp:
-                raw = fp["series/raw"]
-                ev = (evaluate_movie_tiled if oversized(*raw.shape[1:])
-                      else evaluate_movie_streaming)
-                mask, prob, _ = ev(model, raw, **kw)
-            return mask, prob
-        if oversized(*movie.shape[1:]):
-            mask, prob, _ = evaluate_movie_tiled(model, movie, **kw)
-            return mask, prob
-        if not isinstance(movie, (np.ndarray, torch.Tensor)):
-            # An open dataset, sliced lazily: never held whole.
-            mask, prob, _ = evaluate_movie_streaming(model, movie, **kw)
-            return mask, prob
+                with h5py.File(movie, "r") as fp:
+                    raw = fp["series/raw"]
+                    ev = (evaluate_movie_tiled if oversized(*raw.shape[1:])
+                          else evaluate_movie_streaming)
+                    mask, prob, _ = ev(model, raw, **kw)
+                return mask, prob
+            if oversized(*movie.shape[1:]):
+                mask, prob, _ = evaluate_movie_tiled(model, movie, **kw)
+                return mask, prob
+            if not isinstance(movie, (np.ndarray, torch.Tensor)):
+                # An open dataset, sliced lazily: never held whole.
+                mask, prob, _ = evaluate_movie_streaming(model, movie, **kw)
+                return mask, prob
 
-        if isinstance(movie, np.ndarray):
-            movie = torch.from_numpy(np.ascontiguousarray(movie))
-        movie = movie.to(self.device)
-        evaluate = make_movie_evaluator(model, movie.shape,
-                                        window=window_shape, tta=tta,
-                                        threshold=threshold, mesh=mesh)
-        mask, prob, _ = evaluate(movie)
-        return mask.cpu().numpy(), prob.cpu().numpy()
+            with span("evaluate_movie.upload"):
+                if isinstance(movie, np.ndarray):
+                    movie = torch.from_numpy(np.ascontiguousarray(movie))
+                movie = movie.to(self.device)
+            with span("evaluate_movie.evaluate"):
+                evaluate = make_movie_evaluator(model, movie.shape,
+                                                window=window_shape, tta=tta,
+                                                threshold=threshold, mesh=mesh)
+                mask, prob, _ = evaluate(movie)
+            with span("evaluate_movie.fetch"):
+                return mask.cpu().numpy(), prob.cpu().numpy()
 
     # --------------------------------------------------------------- predict
 

@@ -1,17 +1,38 @@
-"""Profiling hooks: a ``torch.profiler`` trace around a block, and
-per-phase throughput counters.
+"""Profiling hooks: a ``torch.profiler`` trace around a block, the
+program's spans, and per-phase throughput counters.
 
 Port of ``deepcalcium_tpu.utils.profiling`` (``trace``, ``annotate``,
 ``ThroughputMeter``):
 ``trace`` is a no-op when no directory is given, so callers can always wrap.
+
+``span(name)`` is the program's one span primitive, in place of the JAX
+package's ``annotate``. Its switch is the profiler itself: a span records
+only while a ``torch.profiler`` profile is active in the process (a
+``fit(profile_dir=)`` epoch, a benchmark's traced window), and is a shared
+no-op context otherwise, so the wrappers can always wrap. A recorded span
+keeps its name, its start and end in ``time.time_ns`` nanoseconds (the
+clock the profiler stamps its events in), its parent, its root (the
+outermost span of the same call, shared by every span of that call) and
+its thread, in a bounded in-memory buffer that ``recorded(t0_ns, t1_ns)``
+reads. It also opens ``torch.profiler.record_function(name)``, so that a
+profiler trace shows the phases. A profile of the CUDA activity alone
+holds no device event named after a span; with the CPU activity on too,
+the innermost span around a launch also shows as a CUDA-typed
+``gpu_user_annotation`` event, which a reader that sums device time must
+leave out.
 """
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["trace", "annotate", "ThroughputMeter"]
+__all__ = ["trace", "span", "recorded", "Span", "ThroughputMeter"]
 
 
 @contextlib.contextmanager
@@ -32,11 +53,70 @@ def trace(log_dir: str | None):
         yield
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named sub-span inside an active profiler trace."""
-    with torch.profiler.record_function(name):
-        yield
+class Span(NamedTuple):
+    """One recorded span: times in ``time.time_ns`` nanoseconds; ``parent``
+    is None for a root, whose ``root`` is its own ``id``."""
+    name: str
+    t0: int
+    t1: int
+    id: int
+    parent: int | None
+    root: int
+    thread: int
+
+
+# The most spans kept; the oldest go first. A traced benchmark window
+# records a few thousand.
+CAPACITY = 1 << 16
+_spans: collections.deque = collections.deque(maxlen=CAPACITY)
+_ids = itertools.count(1)
+_open = threading.local()   # each thread's stack of (id, root) of open spans
+_OFF = contextlib.nullcontext()
+
+
+class _Recording:
+    __slots__ = ("name", "id", "parent", "root", "t0", "rf")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = torch.profiler.record_function(self.name)
+        self.t0 = time.time_ns()
+        self.rf.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        self.parent, self.root = stack[-1] if stack else (None, self.id)
+        stack.append((self.id, self.root))
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.rf.__exit__(*exc)
+        finally:
+            t1 = time.time_ns()
+            _open.stack.pop()
+            # deque.append is atomic: the prefetch thread may record too.
+            _spans.append(Span(self.name, self.t0, t1, self.id, self.parent,
+                               self.root, threading.get_ident()))
+        return False
+
+
+def span(name: str):
+    """A context that records the enclosed block as the span ``name`` while
+    a ``torch.profiler`` profile is active in the process, and does
+    nothing otherwise. The process-wide flag is read, not the per-thread
+    one, which reads False on threads the profiler did not start on."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name)
+
+
+def recorded(t0_ns: int, t1_ns: int) -> list[Span]:
+    """The recorded spans that lie in [t0_ns, t1_ns], oldest end first."""
+    return [s for s in tuple(_spans) if s.t0 >= t0_ns and s.t1 <= t1_ns]
 
 
 class ThroughputMeter:

@@ -2,10 +2,9 @@
 equal to its original on the same inputs: ``utils/model_downloads.py``,
 ``Region`` / ``regions_to_mask`` / ``match_centers``, the D4 helpers
 (``apply_d4``, ``apply_d4_batch``, ``tta_expand_np``, ``tta_collapse_np``),
-``utils/config.py``, ``utils/profiling.py::annotate``,
-``utils/visualization.py::dataset_to_mp4``, ``unet2d.param_count`` and
-``data/fixtures.py``. Everything here is integer or copied float
-arithmetic, so every comparison is exact.
+``utils/config.py``, ``utils/visualization.py::dataset_to_mp4``,
+``unet2d.param_count`` and ``data/fixtures.py``. Everything here is
+integer or copied float arithmetic, so every comparison is exact.
 """
 
 import inspect
@@ -31,7 +30,6 @@ from deepcalcium_torch.models import unet2d as tunet
 from deepcalcium_torch.ops import augment as taug
 from deepcalcium_torch.utils import config as tconfig
 from deepcalcium_torch.utils import model_downloads as tdl
-from deepcalcium_torch.utils import profiling as tprof
 from deepcalcium_torch.utils import visualization as tvis
 
 torch.set_num_threads(1)
@@ -164,20 +162,6 @@ def test_config_shared_with_jax(tmp_path, monkeypatch):
     for mod in (tconfig, jconfig):
         with pytest.raises(RuntimeError, match="is corrupt"):
             mod.get_config()
-
-
-# --- utils/profiling.py ------------------------------------------------------
-
-def test_annotate_names_a_span_in_a_trace():
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with tprof.annotate("stencil-span"):
-            torch.ones(4).sum()
-    assert any(e.key == "stencil-span" for e in prof.key_averages())
-    # Outside a trace it is a no-op that still runs its block.
-    with tprof.annotate("idle"):
-        pass
 
 
 # --- utils/visualization.py --------------------------------------------------
