@@ -30,7 +30,7 @@ import queue
 import numpy as np
 import torch
 
-from deepcalcium_torch.models.unet2d import from_jax_params
+from deepcalcium_torch.models.unet2d import inference_net
 from deepcalcium_torch.parallel.mesh import all_gather, check_mesh
 from deepcalcium_torch.train.evaluate import _reflect_index
 from deepcalcium_torch.train.sampler import Prefetcher
@@ -55,8 +55,8 @@ def _resolve_apply(apply_fn, params, state, compute_dtype, device):
     forward for an upsampling-mode one."""
     if apply_fn is not None:
         return apply_fn
-    net = from_jax_params(params, state, compute_dtype, device).eval()
-    return net.fold() if "up0_tconv" in params else net
+    return inference_net(params, state, compute_dtype, device,
+                         fold="up0_tconv" in params)
 
 
 def _staging_dtype(np_dtype) -> torch.dtype:

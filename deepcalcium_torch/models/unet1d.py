@@ -26,6 +26,7 @@ unit, and on Hopper it would only multiply the thin levels' FLOPs.
 """
 
 import copy
+import inspect
 
 import numpy as np
 import torch
@@ -35,8 +36,8 @@ from deepcalcium_torch.models import blocks as B
 from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet1D", "from_jax_params",
-           "to_jax_params", "load_jax_params_", "jax_tree", "torch_tensors",
-           "param_count", "forward_flops"]
+           "inference_net", "to_jax_params", "load_jax_params_", "jax_tree",
+           "torch_tensors", "param_count", "forward_flops"]
 
 _F = 32
 
@@ -74,6 +75,19 @@ def layer_order(nfb: int = _F):
 
 LAYER_ORDER = layer_order()
 
+_K = {"conv5": 5, "conv1": 1}
+
+
+def _layers(nfb: int):
+    """:func:`layer_order` as (name, kind, cin, cout): the input channels
+    of each layer as the net wires it (a BN's are its conv's outputs)."""
+    cin = 1
+    for name, kind, cout in layer_order(nfb):
+        if name in _CONCAT_CIN:
+            cin = sum(_CONCAT_CIN[name]) * nfb
+        yield name, kind, cin, cout
+        cin = cout
+
 
 class UNet1D(nn.Module):
     """UNet1D forward (``deepcalcium_tpu.models.unet1d.apply``).
@@ -102,16 +116,12 @@ class UNet1D(nn.Module):
         self.folded = False
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        cin = 1
-        for name, kind, cout in layer_order(nfb):
+        for name, kind, cin, cout in _layers(nfb):
             if kind == "bn":
                 self.add_module(name, B.BatchNorm(cout, 0.99))
-                continue
-            if name in _CONCAT_CIN:
-                cin = sum(_CONCAT_CIN[name]) * nfb
-            k = 5 if kind == "conv5" else 1
-            self.add_module(name, B.Conv1d(cin, cout, k, generator))
-            cin = cout
+            else:
+                self.add_module(name, B.Conv1d(cin, cout, _K[kind],
+                                               generator))
 
     def jax_tree(self, tensors=None):
         return jax_tree(self, tensors)
@@ -242,20 +252,96 @@ def load_jax_params_(model: UNet1D, params, state) -> UNet1D:
     return model
 
 
+def _jax_leaves(kind, cin, cout):
+    """(tree, leaf, shape) of a layer's leaves in the JAX package's layout
+    and order: WIO kernels."""
+    if kind == "bn":
+        return (("params", "gamma", (cout,)), ("params", "beta", (cout,)),
+                ("state", "mean", (cout,)), ("state", "var", (cout,)))
+    return (("params", "kernel", (_K[kind], cin, cout)),
+            ("params", "bias", (cout,)))
+
+
+@torch.no_grad()
+def _build(params, state, compute_dtype, device, fold, kwargs) -> UNet1D:
+    """A ``UNet1D`` on ``device`` straight from (params, state), no weight
+    drawn: every leaf packed into one buffer and copied to the device at
+    once (:func:`blocks.upload_packed`), the kernels permuted to OIW there
+    (``net.load``), BN folded there when ``fold`` (``net.fold``:
+    :func:`blocks.fold_bn`, as :meth:`UNet1D.fold` computes it), and the
+    module assembled around the tensors (``net.init``). The weights are
+    bitwise those of the drawn, loaded, moved (and folded) net."""
+    nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
+    args = inspect.signature(UNet1D).bind(nfb, compute_dtype=compute_dtype,
+                                           **kwargs)
+    args.apply_defaults()
+    attrs = dict(args.arguments, folded=fold)
+    attrs["margin"] = int(attrs["margin"])
+    del attrs["generator"]
+    layers = list(_layers(nfb))
+    trees = {"params": params, "state": state}
+    flat = iter(B.upload_packed(
+        [(f"{name}.{leaf}", trees[tree][name][leaf], shape)
+         for name, kind, cin, cout in layers
+         for tree, leaf, shape in _jax_leaves(kind, cin, cout)],
+        "cpu" if device is None else device))
+    # Unfolded, each bias and BN tensor gets storage of its own: views of
+    # one buffer share its autograd version, so a training forward's
+    # in-place BN update would void what its backward saved.
+    own = (lambda x: x) if fold else torch.clone
+    t = {}
+    with span("net.load"):
+        for name, kind, _, _ in layers:
+            if kind == "bn":
+                t[name] = B.BNTensors(*(own(next(flat)) for _ in range(4)))
+            else:
+                t[name] = (next(flat).permute(2, 1, 0).contiguous(),
+                           own(next(flat)))
+    if fold:
+        with span("net.fold"):
+            for name, kind, _, _ in layers:
+                if kind == "bn":
+                    conv = name.replace("_bn", "_conv")
+                    t[conv] = B.fold_bn(*t[conv], t.pop(name))
+            # The head has no BN: a copy of its bias, so that the folded
+            # net holds nothing of the uploaded buffer.
+            w, b = t["head_conv"]
+            t["head_conv"] = (w, b.clone())
+    with span("net.init"):
+        net = B.holding(UNet1D, {}, **attrs)
+        for name, kind, _, _ in layers:
+            if name not in t:
+                continue
+            if kind == "bn":
+                bn = t[name]
+                layer = B.holding(
+                    B.BatchNorm, {"weight": bn.weight, "bias": bn.bias},
+                    {"running_mean": bn.running_mean,
+                     "running_var": bn.running_var}, momentum=0.99)
+            else:
+                w, b = t[name]
+                layer = B.holding(B.Conv1d, {"weight": w, "bias": b})
+            net.add_module(name, layer)
+    return net
+
+
 def from_jax_params(params, state, compute_dtype=None, device=None,
                     **kwargs) -> UNet1D:
     """Build a ``UNet1D`` from the JAX package's (params, state) dicts
-    (numpy or JAX arrays, or CPU tensors); nfb is read off the shapes.
-    ``kwargs`` go to ``UNet1D`` (``margin``, ``drp``)."""
-    nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
-    with span("net.init"):
-        model = UNet1D(nfb, compute_dtype=compute_dtype, **kwargs)
-    with span("net.load"):
-        load_jax_params_(model, params, state)
-    if device is None:
-        return model
-    with span("net.upload"):
-        return model.to(device)
+    (numpy or JAX arrays, or CPU tensors) on ``device`` (None: the CPU);
+    nfb is read off the shapes. ``kwargs`` go where ``UNet1D`` takes them
+    (``margin``, ``drp``). No weight is drawn: the net is bitwise
+    ``UNet1D(...)`` with :func:`load_jax_params_` and ``.to(device)``."""
+    return _build(params, state, compute_dtype, device, False, kwargs)
+
+
+def inference_net(params, state, compute_dtype=None, device=None,
+                  fold=True, **kwargs) -> UNet1D:
+    """The eval-mode net of (params, state) on ``device``, folded
+    (bitwise ``from_jax_params(...).eval().fold()``) when ``fold``: no
+    unfolded net is built, nothing is drawn or deep-copied, and every
+    call reads the arrays it is given."""
+    return _build(params, state, compute_dtype, device, fold, kwargs).eval()
 
 
 def to_jax_params(model: UNet1D):

@@ -15,6 +15,7 @@ unit. ``fold()`` gives the folds alone, which is what ``fast="auto"`` runs.
 """
 
 import copy
+import inspect
 
 import numpy as np
 import torch
@@ -26,8 +27,9 @@ from deepcalcium_torch.models.blocks import fold_bn
 from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet2DS", "fold_bn",
-           "from_jax_params", "to_jax_params", "load_jax_params_",
-           "jax_tree", "torch_tensors", "param_count", "forward_flops"]
+           "from_jax_params", "inference_net", "to_jax_params",
+           "load_jax_params_", "jax_tree", "torch_tensors", "param_count",
+           "forward_flops"]
 
 _F = 32
 _DEC_IN = {"dec3a_conv": 8, "dec2a_conv": 4, "dec1a_conv": 2, "dec0a_conv": 1}
@@ -66,6 +68,23 @@ def layer_order(nfb: int = _F, up_mode: str = "transpose"):
 LAYER_ORDER = layer_order()
 
 
+def _layers(nfb: int, up_mode: str):
+    """:func:`layer_order` as (name, kind, cin, cout): the input channels
+    of each layer as the net wires it (a BN's are its conv's outputs)."""
+    mult = 2 if up_mode == "transpose" else 3
+    cin = 1
+    for name, kind, cout in layer_order(nfb, up_mode):
+        if name in _DEC_IN:
+            cin = nfb * _DEC_IN[name] * mult
+        yield name, kind, cin, cout
+        cin = cout
+
+
+def _momentum(name: str) -> float:
+    """Keras momentum: 0.5 after the transpose convs, else 0.99."""
+    return 0.5 if name.startswith("up") else 0.99
+
+
 class UNet2DS(nn.Module):
     """UNet2DS forward (``deepcalcium_tpu.models.unet2d.apply``).
 
@@ -100,11 +119,8 @@ class UNet2DS(nn.Module):
         self.folded = False
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        mult = 2 if up_mode == "transpose" else 3
-        cin = 1
-        for name, kind, cout in layer_order(nfb, up_mode):
+        for name, kind, cin, cout in _layers(nfb, up_mode):
             if kind == "conv3":
-                cin = nfb * _DEC_IN[name] * mult if name in _DEC_IN else cin
                 self.add_module(name, B.Conv2d(cin, cout, 3, generator,
                                                  init_scheme))
             elif kind == "conv1":
@@ -114,10 +130,7 @@ class UNet2DS(nn.Module):
                 self.add_module(name, B.ConvTranspose2x2(
                     cin, cout, generator, init_scheme))
             else:
-                # Keras momentum: 0.5 after the transpose convs, else 0.99.
-                momentum = 0.5 if name.startswith("up") else 0.99
-                self.add_module(name, B.BatchNorm(cout, momentum))
-            cin = cout
+                self.add_module(name, B.BatchNorm(cout, _momentum(name)))
 
     def jax_tree(self, tensors=None):
         return jax_tree(self, tensors)
@@ -294,21 +307,102 @@ def load_jax_params_(model: UNet2DS, params, state) -> UNet2DS:
     return model
 
 
+def _jax_leaves(kind, cin, cout):
+    """(tree, leaf, shape) of a layer's leaves in the JAX package's layout
+    and order: HWIO kernels, (p, q, o, c) transpose-conv kernels."""
+    if kind == "bn":
+        return (("params", "gamma", (cout,)), ("params", "beta", (cout,)),
+                ("state", "mean", (cout,)), ("state", "var", (cout,)))
+    kernel = {"conv3": (3, 3, cin, cout), "conv1": (1, 1, cin, cout),
+              "tconv": (2, 2, cout, cin)}[kind]
+    return ("params", "kernel", kernel), ("params", "bias", (cout,))
+
+
+@torch.no_grad()
+def _build(params, state, compute_dtype, device, fold, kwargs) -> UNet2DS:
+    """A ``UNet2DS`` on ``device`` straight from (params, state), no weight
+    drawn: every leaf packed into one buffer and copied to the device at
+    once (:func:`blocks.upload_packed`), the kernels permuted to PyTorch's
+    layouts there (``net.load``), BN folded there when ``fold``
+    (``net.fold``: :func:`fold_bn` and the sigmoid head, as
+    :meth:`UNet2DS.fold` computes them), and the module assembled around
+    the tensors (``net.init``). The weights are bitwise those of the drawn,
+    loaded, moved (and folded) net."""
+    nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
+    up_mode = "transpose" if "up0_tconv" in params else "upsampling"
+    args = inspect.signature(UNet2DS).bind(nfb, up_mode, compute_dtype,
+                                            **kwargs)
+    args.apply_defaults()
+    attrs = dict(args.arguments, folded=fold)
+    del attrs["generator"]
+    layers = list(_layers(nfb, up_mode))
+    trees = {"params": params, "state": state}
+    flat = iter(B.upload_packed(
+        [(f"{name}.{leaf}", trees[tree][name][leaf], shape)
+         for name, kind, cin, cout in layers
+         for tree, leaf, shape in _jax_leaves(kind, cin, cout)],
+        "cpu" if device is None else device))
+    # Unfolded, each bias and BN tensor gets storage of its own: views of
+    # one buffer share its autograd version, so a training forward's
+    # in-place BN update would void what its backward saved.
+    own = (lambda x: x) if fold else torch.clone
+    t = {}
+    with span("net.load"):
+        for name, kind, _, _ in layers:
+            if kind == "bn":
+                t[name] = B.BNTensors(*(own(next(flat)) for _ in range(4)))
+            else:
+                t[name] = (next(flat).permute(3, 2, 0, 1).contiguous(),
+                           own(next(flat)))
+    if fold:
+        with span("net.fold"):
+            prev = None
+            for name, kind, _, _ in layers:
+                if kind == "bn":
+                    t[prev] = fold_bn(*t[prev], t.pop(name),
+                                      out_dim=1 if prev.endswith("_tconv")
+                                      else 0)
+                prev = name
+            w, b = t["head_conv"]
+            t["head_conv"] = (w[1:] - w[:1], b[1:] - b[:1])
+    with span("net.init"):
+        net = B.holding(UNet2DS, {}, **attrs)
+        for name, kind, _, _ in layers:
+            if name not in t:
+                continue
+            if kind == "bn":
+                bn = t[name]
+                layer = B.holding(
+                    B.BatchNorm, {"weight": bn.weight, "bias": bn.bias},
+                    {"running_mean": bn.running_mean,
+                     "running_var": bn.running_var},
+                    momentum=_momentum(name))
+            else:
+                w, b = t[name]
+                layer = B.holding(B.ConvTranspose2x2 if kind == "tconv"
+                                  else B.Conv2d, {"weight": w, "bias": b})
+            net.add_module(name, layer)
+    return net
+
+
 def from_jax_params(params, state, compute_dtype=None, device=None,
                     **kwargs) -> UNet2DS:
     """Build a ``UNet2DS`` from the JAX package's (params, state) dicts
-    (numpy or JAX arrays, or CPU tensors); nfb and up_mode are read off the
-    shapes. ``kwargs`` go to ``UNet2DS`` (``drp``, ``remat``)."""
-    nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
-    up_mode = "transpose" if "up0_tconv" in params else "upsampling"
-    with span("net.init"):
-        model = UNet2DS(nfb, up_mode, compute_dtype, **kwargs)
-    with span("net.load"):
-        load_jax_params_(model, params, state)
-    if device is None:
-        return model
-    with span("net.upload"):
-        return model.to(device)
+    (numpy or JAX arrays, or CPU tensors) on ``device`` (None: the CPU);
+    nfb and up_mode are read off the shapes. ``kwargs`` go where
+    ``UNet2DS`` takes them (``drp``, ``remat``). No weight is drawn: the
+    net is bitwise ``UNet2DS(...)`` with :func:`load_jax_params_` and
+    ``.to(device)``."""
+    return _build(params, state, compute_dtype, device, False, kwargs)
+
+
+def inference_net(params, state, compute_dtype=None, device=None,
+                  fold=True, **kwargs) -> UNet2DS:
+    """The eval-mode net of (params, state) on ``device``, folded
+    (bitwise ``from_jax_params(...).eval().fold()``) when ``fold``: no
+    unfolded net is built, nothing is drawn or deep-copied, and every
+    call reads the arrays it is given."""
+    return _build(params, state, compute_dtype, device, fold, kwargs).eval()
 
 
 def to_jax_params(model: UNet2DS):

@@ -28,7 +28,7 @@ from math import ceil
 import numpy as np
 import torch
 
-from deepcalcium_torch.models.unet1d import (UNet1D, from_jax_params,
+from deepcalcium_torch.models.unet1d import (UNet1D, inference_net,
                                              load_jax_params_, to_jax_params)
 from deepcalcium_torch.ops import losses as L
 from deepcalcium_torch.parallel.mesh import agree, check_mesh
@@ -464,7 +464,9 @@ class UNet1DSegmentation:
         run through the eval-mode net in slabs of ``batch``.
         ``model_path``: a ``.ckpt`` of either package or a Keras
         ``.hdf5``/``.h5``. The net is ``net_func``'s, with the weights
-        loaded; the stock ``UNet1D`` reads its width off the weights.
+        loaded; the stock ``UNet1D`` reads its width off the weights and is
+        built straight off them (:func:`unet1d.inference_net`: one packed
+        upload, nothing drawn).
         ``fast``: True, or "auto" when the built net is a ``UNet1D`` itself
         (not a subclass), runs ``UNet1D.fold()``, BN folded into the convs
         and the sigmoid head (exact up to float rounding), as the JAX
@@ -485,23 +487,26 @@ class UNet1DSegmentation:
                     params, state = ckpt["params"], ckpt["state"]
             with span("predict.build"):
                 if self.net_func is UNet1D:
-                    net = from_jax_params(params, state, self.compute_dtype,
-                                          self.device,
-                                          margin=int(error_margin))
+                    fold = fast is True or fast == "auto"
+                    net = inference_net(params, state, self.compute_dtype,
+                                        self.device, fold=fold,
+                                        margin=int(error_margin))
                 else:
                     net = load_jax_params_(self.net_func(
                         compute_dtype=self.compute_dtype,
                         generator=torch.Generator().manual_seed(0),
                         margin=int(error_margin)), params, state).to(
-                            self.device)
-                net = net.eval()
-                if fast is True or (fast == "auto" and type(net) is UNet1D):
+                            self.device).eval()
+                    fold = fast is True or (fast == "auto"
+                                            and type(net) is UNet1D)
+                    if fold:
+                        with span("net.fold"):
+                            net = net.fold()
+                if fold:
                     logging.getLogger(__name__).info(
                         "fast=%r: running the folded inference forward "
                         "(UNet1D.fold: BN folded into the convs, the sigmoid "
                         "head)", fast)
-                    with span("net.fold"):
-                        net = net.fold()
                 fwd = T.make_eval_forward(net, mesh)
 
             spikes_pred_all, names_all = [], []

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from deepcalcium_torch.metrics.neurofinder import nf_mask_metrics
-from deepcalcium_torch.models.unet2d import (UNet2DS, from_jax_params,
+from deepcalcium_torch.models.unet2d import (UNet2DS, inference_net,
                                              load_jax_params_, to_jax_params)
 from deepcalcium_torch.ops import losses as L
 from deepcalcium_torch.ops.mask_summary import (mask_summary_exact,
@@ -183,35 +183,38 @@ class UNet2DSummary:
     def _inference_net(self, params, state, window_shape, fast):
         """The eval-mode net on ``self.device``, as the JAX package's
         ``_resolve_apply_fn`` picks its forward. The stock net (``UNet2DS``
-        or a ``functools.partial`` of it) is built off the weights, which
-        give its width and up mode; any other ``net_func`` is built as
-        ``fit`` builds it, and the weights are loaded into it. ``fast=True``
-        folds BN into the convs with the sigmoid head (``UNet2DS.fold``,
-        exact up to float rounding) whatever the net is; "auto" folds only
-        a net whose type is ``UNet2DS`` itself, with a transpose-mode
-        checkpoint and a window of multiples of 16; anything else runs the
-        unfolded net."""
+        or a ``functools.partial`` of it) is built straight off the
+        weights, which give its width and up mode
+        (:func:`unet2d.inference_net`: one packed upload, nothing drawn);
+        any other ``net_func`` is built as ``fit`` builds it, and the
+        weights are loaded into it. ``fast=True`` folds BN into the convs
+        with the sigmoid head (``UNet2DS.fold``, exact up to float
+        rounding) whatever the net is; "auto" folds only a net whose type
+        is ``UNet2DS`` itself, with a transpose-mode checkpoint and a
+        window of multiples of 16; anything else runs the unfolded net."""
         stock = self.net_func is UNet2DS or (
             isinstance(self.net_func, functools.partial)
             and self.net_func.func is UNet2DS)
+        auto = "up0_tconv" in params and all(s % 16 == 0
+                                             for s in window_shape)
         if stock:
-            net = from_jax_params(params, state, self.compute_dtype,
-                                  self.device)
+            fold = fast is True or (fast == "auto" and auto)
+            net = inference_net(params, state, self.compute_dtype,
+                                self.device, fold=fold)
         else:
             net = load_jax_params_(self.net_func(
                 compute_dtype=self.compute_dtype,
                 generator=torch.Generator().manual_seed(0), remat=False),
-                params, state).to(self.device)
-        net = net.eval()
-        if fast is True or (
-                fast == "auto" and type(net) is UNet2DS
-                and "up0_tconv" in params
-                and all(s % 16 == 0 for s in window_shape)):
+                params, state).to(self.device).eval()
+            fold = fast is True or (
+                fast == "auto" and type(net) is UNet2DS and auto)
+            if fold:
+                with span("net.fold"):
+                    net = net.fold()
+        if fold:
             logging.getLogger(__name__).info(
                 "fast=%r: running the folded inference forward (UNet2DS.fold: "
                 "BN folded into the convs, the sigmoid head)", fast)
-            with span("net.fold"):
-                net = net.fold()
         return net
 
     # ------------------------------------------------------------------ fit

@@ -314,6 +314,43 @@ def test_unet1d_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(gpu, cpu, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("net", ["unet2d", "unet1d"])
+def test_direct_inference_build_on_card_is_bitwise(cuda_device, net, fold):
+    """The direct build at the published width (nfb 32, bf16) through the
+    page-locked staging buffer, twice, against the drawn net loaded, moved
+    to the card and folded: every parameter and buffer, and a forward,
+    bitwise."""
+    from deepcalcium_torch.models import unet1d, unet2d
+
+    mod = unet2d if net == "unet2d" else unet1d
+    cls = unet2d.UNet2DS if net == "unet2d" else unet1d.UNet1D
+    params, state = mod.to_jax_params(cls(32))
+    rng = np.random.default_rng(3)
+    for name in state:
+        c = state[name]["mean"].shape
+        state[name] = {"mean": rng.normal(0, 0.2, c).astype(np.float32),
+                       "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+        params[name] = {"gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                        "beta": rng.normal(0, 0.2, c).astype(np.float32)}
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 256, 256) if net == "unet2d" else (4, 4096)).astype(
+            np.float32)).to(cuda_device)
+    with torch.no_grad():
+        old = mod.load_jax_params_(cls(32, compute_dtype=torch.bfloat16),
+                                   params, state).to(cuda_device).eval()
+        old = old.fold() if fold else old
+        want = old(x)
+        for _ in range(2):
+            new = mod.inference_net(params, state, torch.bfloat16,
+                                    cuda_device, fold=fold)
+            sa, sb = new.state_dict(), old.state_dict()
+            assert list(sa) == list(sb)
+            for k in sa:
+                assert sa[k].is_cuda and torch.equal(sa[k], sb[k]), k
+            assert torch.equal(new(x), want)
+
+
 def test_bf16_1d_train_step_lowers_the_loss_on_card(cuda_device):
     """5 bf16 UNet1D train steps (nfb=4, dropout on, wbce pos=2) on one
     fixed batch: the loss stays finite and falls."""

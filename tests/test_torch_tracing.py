@@ -193,7 +193,8 @@ def test_recorded_keeps_only_the_window():
 
 # --- the wrappers' span trees ---------------------------------------------------
 
-NET_BUILD = {"net.init": 1, "net.load": 1, "net.upload": 1, "net.fold": 1}
+NET_BUILD = {"net.pack": 1, "net.upload": 1, "net.load": 1, "net.fold": 1,
+             "net.init": 1}
 
 
 def _under(parent, names):
