@@ -3,9 +3,11 @@
 Port of ``deepcalcium_tpu.cli``: the same ten subcommands, flags, defaults,
 printed lines and output files (timestamped and ``latest`` submission
 JSONs, the ``masks/frames`` stack of ``segment``, the ``.npz`` and outlined
-PNG of ``evaluate-movie``). One flag is added: ``--device {cuda,cpu}`` on
-every subcommand that builds a model or a summary. The default is the card,
-and without one a command fails: nothing falls back to the CPU.
+PNG of ``evaluate-movie``). Two flags are added: ``--device {cuda,cpu}`` on
+every subcommand that builds a model or a summary (the default is the card,
+and without one a command fails: nothing falls back to the CPU), and
+``evaluate-movie --arch {unet2ds,cellpose-sam}``, whose ``cellpose-sam``
+runs Cellpose-SAM on the movie's mean image to instance labels.
 
 Usage:
     python -m deepcalcium_torch.cli train all_train
@@ -64,6 +66,14 @@ def _neuron_wrapper(args, **kw):
 
     return UNet2DSummary(cpdir=_neurons_cpdir(args.checkpoints_dir),
                          device=args.device, **kw)
+
+
+def _cellpose_wrapper(args):
+    from deepcalcium_torch.models.cellpose_summary import CellposeSummary
+
+    return CellposeSummary(model_path=args.model_path,
+                           compute_dtype=_DTYPES[args.dtype],
+                           device=args.device)
 
 
 def _spike_wrapper(args):
@@ -299,11 +309,31 @@ def cmd_ingest(args):
 
 def cmd_evaluate_movie(args):
     """Summary -> TTA -> threshold evaluate of a raw movie file; the movie
-    streams from the file in chunks and is never held whole."""
+    streams from the file in chunks and is never held whole. With
+    ``--arch cellpose-sam``: Cellpose-SAM on the movie's mean image, to
+    instance labels."""
     import numpy as np
 
     from deepcalcium_torch.utils.visualization import mask_outlines, save_png
 
+    if args.arch == "cellpose-sam":
+        given = sorted(getattr(args, "explicit", ()))
+        if given:
+            raise SystemExit(f"--arch cellpose-sam takes no {', '.join(given)}"
+                             f": Cellpose-SAM runs 256 px tiles and "
+                             f"thresholds its cell probability at 0")
+        model = _cellpose_wrapper(args)
+        with _open_raw(args.movie) as raw:
+            labels, flows = model.evaluate_movie(raw)
+        print(f"labels {labels.shape}: {int(labels.max())} cells, "
+              f"{int((labels > 0).sum())} px ({(labels > 0).mean():.2%})")
+        if args.out:
+            np.savez(args.out, labels=labels, flows=flows)
+            print(f"wrote {args.out}")
+        if args.png:
+            save_png(args.png, mask_outlines(flows[2], [labels > 0], ["red"]))
+            print(f"wrote {args.png}")
+        return
     if args.window % 16 or args.window < 16:
         raise SystemExit(f"--window {args.window} must be a multiple of 16 "
                          f"(4 pooling levels) — failing before the movie "
@@ -344,6 +374,17 @@ def cmd_segment(args):
     _write_masks(out_path, masks)
     print(f"wrote {out_path}: {masks.shape}, "
           f"{float(np.mean(masks)):.2%} positive")
+
+
+class _Explicit(argparse.Action):
+    """Stores the value and notes the flag in ``namespace.explicit``, so
+    that a command can refuse a flag it was given (a default is not
+    given)."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        setattr(namespace, self.dest, values)
+        explicit = set(getattr(namespace, "explicit", ()))
+        namespace.explicit = explicit | {option_string}
 
 
 _NO_EFFECT = ("accepted for scripts written for the JAX package; checked "
@@ -506,10 +547,15 @@ def build_parser():
         help="Summary->TTA->threshold evaluate of one raw movie.")
     p.add_argument("movie", help="contract HDF5 (series/raw) path")
     p.add_argument("-m", "--model_path", required=True,
-                   help=".ckpt or Keras .hdf5")
+                   help=".ckpt or Keras .hdf5; a Cellpose-SAM state dict "
+                        "with --arch cellpose-sam")
     p.add_argument("-c", "--checkpoints_dir")
-    p.add_argument("--window", type=int, default=512)
-    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--arch", choices=("unet2ds", "cellpose-sam"),
+                   default="unet2ds",
+                   help="cellpose-sam: Cellpose-SAM on the mean image, to "
+                        "instance labels")
+    p.add_argument("--window", type=int, default=512, action=_Explicit)
+    p.add_argument("--threshold", type=float, default=0.5, action=_Explicit)
     _add_dtype_flag(p, "float32")
     p.add_argument("--no-tta", action="store_true")
     p.add_argument("--out", help="write mask+prob to this .npz")

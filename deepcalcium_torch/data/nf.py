@@ -26,7 +26,8 @@ from glob import glob
 import numpy as np
 import torch
 
-from deepcalcium_torch.metrics.neurofinder import label_mask, mask_to_regions  # noqa: F401 (re-export)
+from deepcalcium_torch.metrics.neurofinder import (  # noqa: F401 (re-export)
+    label_mask, labels_to_regions, mask_to_regions)
 from deepcalcium_torch.utils.config import datasets_dir
 from deepcalcium_torch.utils.device import require_cuda
 from deepcalcium_torch.utils.runtime import funcname
@@ -163,10 +164,11 @@ def nf_load_hdf5(names, datasets_dir_override=None, device="cuda"):
     return paths
 
 
-def nf_submit(Mp, names, json_path) -> None:
+def nf_submit(Mp, names, json_path, instances=False) -> None:
     """Write a Neurofinder challenge submission JSON: one entry a dataset
     (the ``neurofinder.`` prefix dropped), one region a connected component
-    of its mask, or a single placeholder region at (0, 0) for an empty
+    of its mask (one a label of an instance image, Cellpose's, with
+    ``instances``), or a single placeholder region at (0, 0) for an empty
     mask. Coordinates are ``np.where``'s (row, col) pairs, the layout of
     the reference's submissions."""
     logger = logging.getLogger(funcname())
@@ -178,7 +180,8 @@ def nf_submit(Mp, names, json_path) -> None:
         # row-major within it: the JAX package's np.where per label gives
         # the same pairs in the same order at the cost of a whole-image
         # pass per region.
-        regions = [{"coordinates": r.tolist()} for r in mask_to_regions(mp)]
+        regions = [{"coordinates": r.tolist()} for r in
+                   (labels_to_regions if instances else mask_to_regions)(mp)]
         submission.append({"dataset": name,
                            "regions": regions or [{"coordinates": [[0, 0]]}]})
 

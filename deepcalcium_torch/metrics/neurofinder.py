@@ -17,8 +17,9 @@ semantics:
 import numpy as np
 from scipy import ndimage
 
-__all__ = ["Region", "label_mask", "mask_to_regions", "regions_to_mask",
-           "match_centers", "centers", "shapes", "nf_mask_metrics"]
+__all__ = ["Region", "label_mask", "mask_to_regions", "labels_to_regions",
+           "regions_to_mask", "match_centers", "centers", "shapes",
+           "nf_mask_metrics"]
 
 _STRUCT8 = np.ones((3, 3), dtype=np.int32)
 
@@ -62,6 +63,23 @@ def mask_to_regions(m: np.ndarray) -> list:
         if sl is None:
             continue
         yy, xx = np.nonzero(labeled[sl] == lbl)
+        regions.append(np.stack([yy + sl[0].start, xx + sl[1].start],
+                                axis=1).astype(np.int64))
+    return regions
+
+
+def labels_to_regions(labels: np.ndarray) -> list:
+    """Instance labels (H, W) (0 the background, as Cellpose writes them)
+    -> list of (N, 2) int64 coordinate arrays, one per label in label
+    order: touching instances stay apart, where :func:`mask_to_regions`'
+    connected components would merge them."""
+    labels = np.asarray(labels)
+    regions = []
+    for lbl, sl in enumerate(ndimage.find_objects(labels.astype(np.int64)),
+                             start=1):
+        if sl is None:
+            continue
+        yy, xx = np.nonzero(labels[sl] == lbl)
         regions.append(np.stack([yy + sl[0].start, xx + sl[1].start],
                                 axis=1).astype(np.int64))
     return regions
@@ -122,14 +140,19 @@ def shapes(a, b, threshold=np.inf):
     return float(np.mean(incl)), float(np.mean(excl))
 
 
-def nf_mask_metrics(m, mp, threshold=np.inf):
+def nf_mask_metrics(m, mp, threshold=np.inf, instances=False):
     """(precision, recall, inclusion, exclusion, F1) of predicted mask
     ``mp`` (rounded to 0/1) against ground truth ``m``; all zeros for an
-    empty prediction."""
-    mp = np.round(np.asarray(mp))
-    if np.sum(mp) == 0:
+    empty prediction. With ``instances`` both are instance label images
+    (Cellpose's), whose labels are the regions."""
+    if instances:
+        ra, rb = labels_to_regions(m), labels_to_regions(mp)
+    else:
+        mp = np.round(np.asarray(mp))
+        ra, rb = ((mask_to_regions(m), mask_to_regions(mp)) if np.sum(mp)
+                  else (None, []))
+    if not rb:
         return 0.0, 0.0, 0.0, 0.0, 0.0
-    ra, rb = mask_to_regions(m), mask_to_regions(mp)
     r, p = centers(ra, rb, threshold)
     i, e = shapes(ra, rb, threshold)
     f1 = 2.0 * (r * p) / (r + p) if (r + p) > 0 else 0.0

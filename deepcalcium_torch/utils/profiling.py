@@ -20,6 +20,12 @@ holds no device event named after a span; with the CPU activity on too,
 the innermost span around a launch also shows as a CUDA-typed
 ``gpu_user_annotation`` event, which a reader that sums device time must
 leave out.
+
+``count(name, value)`` is the program's counter, beside ``span``: under
+the same switch it records a number (pixels followed, masks kept) with
+its time and the innermost open span of its thread as its parent, into
+the same buffer, which ``counted(t0_ns, t1_ns)`` reads; ``recorded``
+returns spans only.
 """
 
 import collections
@@ -32,7 +38,8 @@ from typing import NamedTuple
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["trace", "span", "recorded", "Span", "ThroughputMeter"]
+__all__ = ["trace", "span", "recorded", "Span", "count", "counted", "Count",
+           "ThroughputMeter"]
 
 
 @contextlib.contextmanager
@@ -65,8 +72,20 @@ class Span(NamedTuple):
     thread: int
 
 
-# The most spans kept; the oldest go first. A traced benchmark window
-# records a few thousand.
+class Count(NamedTuple):
+    """One recorded counter: ``t`` in ``time.time_ns`` nanoseconds;
+    ``parent`` and ``root`` are those of the innermost span open on its
+    thread, or None outside any span."""
+    name: str
+    value: float
+    t: int
+    parent: int | None
+    root: int | None
+    thread: int
+
+
+# The most spans and counts kept; the oldest go first. A traced benchmark
+# window records a few thousand.
 CAPACITY = 1 << 16
 _spans: collections.deque = collections.deque(maxlen=CAPACITY)
 _ids = itertools.count(1)
@@ -116,7 +135,26 @@ def span(name: str):
 
 def recorded(t0_ns: int, t1_ns: int) -> list[Span]:
     """The recorded spans that lie in [t0_ns, t1_ns], oldest end first."""
-    return [s for s in tuple(_spans) if s.t0 >= t0_ns and s.t1 <= t1_ns]
+    return [s for s in tuple(_spans)
+            if type(s) is Span and s.t0 >= t0_ns and s.t1 <= t1_ns]
+
+
+def count(name: str, value) -> None:
+    """Record ``value`` under ``name`` while a ``torch.profiler`` profile
+    is active in the process (the switch of :func:`span`); do nothing
+    otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = getattr(_open, "stack", None)
+    parent, root = stack[-1] if stack else (None, None)
+    _spans.append(Count(name, float(value), time.time_ns(), parent, root,
+                        threading.get_ident()))
+
+
+def counted(t0_ns: int, t1_ns: int) -> list[Count]:
+    """The recorded counts taken in [t0_ns, t1_ns], oldest first."""
+    return [c for c in tuple(_spans)
+            if type(c) is Count and t0_ns <= c.t <= t1_ns]
 
 
 class ThroughputMeter:

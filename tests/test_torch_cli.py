@@ -98,11 +98,14 @@ def test_same_ten_subcommands():
 @pytest.mark.parametrize("name", SUBCOMMANDS)
 def test_parser_defaults_match_jax(name):
     """Every flag and default of the JAX parser, plus ``--device``
-    (default cuda) wherever a model or a summary is built."""
+    (default cuda) wherever a model or a summary is built, and
+    ``evaluate-movie``'s ``--arch`` (default unet2ds)."""
     argv = [name] + _minimal_argv(name)
     want = vars(jcli.build_parser().parse_args(argv))
     got = vars(tcli.build_parser().parse_args(argv))
     assert got.pop("func").__name__ == want.pop("func").__name__
+    if name == "evaluate-movie":
+        assert got.pop("arch") == "unet2ds"
     if name == "convert":
         assert "device" not in got
     else:
@@ -111,7 +114,8 @@ def test_parser_defaults_match_jax(name):
     jsub, tsub = (_subparsers(p.build_parser())[name] for p in (jcli, tcli))
     jflags = {s for a in jsub._actions for s in a.option_strings}
     tflags = {s for a in tsub._actions for s in a.option_strings}
-    assert tflags - jflags == (set() if name == "convert" else {"--device"})
+    added = {"convert": set(), "evaluate-movie": {"--device", "--arch"}}
+    assert tflags - jflags == added.get(name, {"--device"})
     assert jflags <= tflags
     for a in tsub._actions:
         if a.option_strings and a.choices:
