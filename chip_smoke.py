@@ -57,7 +57,10 @@ Phases, one line each, in order:
     unfolded net; then frames/s over two calls, device time and idle share;
 18. the stencil mask summary of 300 neurons on 512x512 on the card, equal
     bit for bit to the CPU's, a subset of the exact walk's, and equal to it
-    on separated neurons;
+    on separated neurons; then Cellpose's two flow kernels
+    (``ops/flows.py``: 200 Euler steps of ~28,000 pixels on a 512x512
+    field, the diffusion of ~160 masks) bit for bit their plain steps on
+    the card, each timed beside its bound and the plain steps' time;
 19. the command line, ``deepcalcium_torch.cli.main([...])`` with no
     ``--device``: ``evaluate-movie``, ``segment``, ``parity-golden``,
     ``predict``, ``spikes-train --arch glm``, ``spikes-predict --arch glm``
@@ -128,6 +131,12 @@ FIT_FRAMES, FIT_EPOCHS, FIT_STEPS = 1000, 2, 10
 SPIKE_BATCH, SPIKE_WINDOW, SPIKE_MARGIN = 20, 4096, 4
 SPIKE_TRACES, SPIKE_LEN, SPIKE_EPOCHS = 200, 30011, 2
 GLM_EPOCHS = 300
+# The flow kernels' latency bounds (csrc/flows.cu) at the H100's 1.98 GHz
+# boost clock: a dependent L2 hit, about 260 cycles in published
+# microbenchmarks, for each Euler step; a barrier, a shared-memory read and
+# nine dependent float64 adds, about 200 cycles, for each diffusion step.
+L2_HIT_S = 260 / 1.98e9
+DIFFUSE_STEP_S = 200 / 1.98e9
 
 
 class _LogArgs:
@@ -2254,6 +2263,77 @@ def phase_stencil(dev, seed, card):
     return numbers
 
 
+def phase_flows(dev, seed, card):
+    """Cellpose's two step loops (``ops/flows.py``) at the Cellpose cell's
+    shapes: the Euler kernel on the foreground of ~160 neurons of 75-300
+    pixels on a 512x512 field for 200 steps, and the diffusion kernel on
+    those neurons' masks; each bit for bit its plain version on the card,
+    and each timed alone beside its bound and the plain version's time."""
+    import numpy as np
+    import torch
+
+    from deepcalcium_torch.ops import flows
+
+    rng = np.random.default_rng(seed + 23)
+    masks = _neuron_masks(rng, (WINDOW, WINDOW), 160, r_lo=5, r_hi=10)
+    labels = (masks.astype(np.int64)
+              * np.arange(1, len(masks) + 1)[:, None, None]).max(axis=0)
+    lab = torch.from_numpy(labels).to(dev)
+    # Cellpose's training targets of the masks (5 x the diffused flows)
+    # plus noise: the flows the cell's readout is fit to.
+    mu, y, x, _, _ = flows.masks_to_flows(lab)
+    dP = torch.zeros((2, WINDOW, WINDOW), device=dev)
+    dP[:, y - 1, x - 1] = 5 * mu.float()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dP += torch.randn(dP.shape, generator=gen, device=dev)
+    inds = torch.nonzero(lab > 0).contiguous()
+    im = flows.euler_field(dP * (lab > 0) / 5.0)
+    d = flows.diffusion_inputs(lab)
+    got = flows.euler_steps_cuda(im, inds, 200)
+    if not torch.equal(got, flows.euler_steps(im, inds, 200)):
+        raise AssertionError("the Euler kernel's end points differ from the "
+                             "plain steps'")
+    t = flows.diffuse_cuda(d)
+    if not torch.equal(t, flows.diffuse(d)):
+        raise AssertionError("the diffusion kernel's T differs from the "
+                             "plain steps'")
+    sizes = np.bincount(labels.ravel())[1:]
+    numbers = {
+        "pixels": int(inds.shape[0]), "niter": 200,
+        "masks": int((sizes > 0).sum()), "mask_px": [int(sizes.min()),
+                                                     int(sizes.max())],
+        "steps": d.steps,
+        "euler_ms": timed_ms(lambda: flows.euler_steps_cuda(im, inds, 200),
+                             50),
+        "euler_plain_ms": timed_ms(lambda: flows.euler_steps(im, inds, 200),
+                                   3),
+        "euler_bound_ms": 200 * L2_HIT_S * 1e3,
+        "diffuse_ms": timed_ms(lambda: flows.diffuse_cuda(d), 50),
+        "diffuse_plain_ms": timed_ms(lambda: flows.diffuse(d), 3),
+        "diffuse_bound_ms": d.steps * DIFFUSE_STEP_S * 1e3}
+    # Each kernel's own device time, without its wrapper's other kernels.
+    for key, fn, kernel in (
+            ("euler_kernel_ms", lambda: flows.euler_steps_cuda(im, inds, 200),
+             "euler_kernel"),
+            ("diffuse_kernel_ms", lambda: flows.diffuse_cuda(d),
+             "diffuse_kernel")):
+        numbers[key] = sum(ms for name, ms, _ in kernel_table(fn, 10)
+                           if kernel in name)
+    print(f"flow kernels, {numbers['pixels']} pixels x 200 Euler steps on "
+          f"{WINDOW}^2 and {numbers['masks']} masks of "
+          f"{numbers['mask_px'][0]}-{numbers['mask_px'][1]} px x {d.steps} "
+          f"diffusion steps: both bit for bit their plain steps; Euler "
+          f"{numbers['euler_ms']:.4f} ms a call, kernel "
+          f"{numbers['euler_kernel_ms']:.4f} (bound "
+          f"{numbers['euler_bound_ms']:.4f}, plain "
+          f"{numbers['euler_plain_ms']:.3f}), diffusion "
+          f"{numbers['diffuse_ms']:.4f} ms a call, kernel "
+          f"{numbers['diffuse_kernel_ms']:.4f} (bound "
+          f"{numbers['diffuse_bound_ms']:.4f}, plain "
+          f"{numbers['diffuse_plain_ms']:.3f}); {card}", flush=True)
+    return numbers
+
+
 class _HostMovie:
     """An in-memory stand-in for an open HDF5 dataset: a shape, a dtype and
     slicing, so that a command takes the path it takes for a file."""
@@ -3119,6 +3199,7 @@ def main(argv=None):
     glm = timed("glm", phase_glm, dev, fit1d_ctx, card)
     segment = timed("segment", phase_segment, dev, main_ctx, card)
     stencil = timed("stencil", phase_stencil, dev, args.seed, card)
+    flow_kernels = timed("flows", phase_flows, dev, args.seed, card)
     cli_launches, cli = timed("cli", phase_cli, dev, main_ctx, fit1d_ctx, card)
     par_launches, parallel = timed("parallel", phase_parallel, dev, main_ctx,
                                    card, args.seed)
@@ -3154,7 +3235,10 @@ def main(argv=None):
         "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": None,
         "fold_ms": fold["ms"], "fold_plain_ms": fold["plain_ms"],
-        "fold_bound_ms": fold["bound_ms"], "fold_shape": fold["shape"]}],
+        "fold_bound_ms": fold["bound_ms"], "fold_shape": fold["shape"]}, {
+        "name": "Euler steps euler_steps_cuda, diffusion diffuse_cuda",
+        "route": "cuda", "source": "deepcalcium_torch/csrc/flows.cu",
+        "replaces": None, **flow_kernels}],
         "evaluate_ms": eval_ms, "train_golden_max_abs_err": golden_errs,
         "fit": fit, "stream": stream, "tiled": tiled, "predict": predict,
         "golden1d_max_abs_err": golden1d_err,

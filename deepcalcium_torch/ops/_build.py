@@ -75,6 +75,11 @@ def load_library() -> ctypes.CDLL:
     lib.dc_movie_summary.restype = ctypes.c_int
     lib.dc_movie_fold.argtypes = [p, ctypes.c_int, ll, ll, p, p, p]
     lib.dc_movie_fold.restype = ctypes.c_int
+    i = ctypes.c_int
+    lib.dc_euler_steps.argtypes = [p, i, i, p, ll, i, p, p]
+    lib.dc_euler_steps.restype = ctypes.c_int
+    lib.dc_diffuse.argtypes = [p, p, p, i, i, i, p, p, p]
+    lib.dc_diffuse.restype = ctypes.c_int
     lib.dc_error_string.argtypes = [ctypes.c_int]
     lib.dc_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,8 +6,7 @@ The steps, as ``cellpose/dynamics.py`` runs them (each a span of the
 program, under ``cellpose.dynamics``):
 
 - ``follow_flows``: every pixel of ``cellprob > threshold`` moves 200
-  Euler steps (on a card replays of a one-step CUDA graph) through
-  ``dP * fg / 5``, bilinear (``grid_sample``, zero
+  Euler steps through ``dP * fg / 5``, bilinear (``grid_sample``, zero
   padding, ``align_corners=False``) on positions normalised as
   ``2 p / (L - 1) - 1`` and clamped to [-1, 1] (Cellpose's own mix of the
   two conventions); end points are truncated to integers.
@@ -28,9 +27,21 @@ program, under ``cellpose.dynamics``):
   order: on the host, all boxes at once unless a hole holds another mask);
   labels renumbered 1..n.
 
+Each of the two step loops, the Euler steps and the diffusion, has a plain
+PyTorch version (:func:`euler_steps`, :func:`diffuse`), which runs on any
+device and is what a CPU tensor takes, and a kernel that runs all the
+steps in one launch (:func:`euler_steps_cuda`, :func:`diffuse_cuda`;
+``csrc/flows.cu``), bitwise the plain version on the card, which is what a
+CUDA tensor takes.
+
 Every step counts what it handled (``profiling.count``): ``cellpose.seeds``,
-``cellpose.qc_iters``, ``cellpose.masks`` and ``cellpose.masks_dropped``.
+``cellpose.qc_iters``, ``cellpose.masks`` and ``cellpose.masks_dropped``;
+``cellpose.loop_launches`` counts the kernel launches the two loops took
+(2 a call on a card, 0 on the CPU).
 """
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,9 +50,10 @@ from scipy import ndimage
 
 from deepcalcium_torch.utils.profiling import count, span
 
-__all__ = ["follow_flows", "get_masks", "masks_to_flows",
-           "remove_bad_flow_masks", "fill_holes_and_remove_small_masks",
-           "compute_masks"]
+__all__ = ["follow_flows", "euler_field", "euler_steps", "euler_steps_cuda",
+           "get_masks", "Diffusion", "diffusion_inputs", "diffuse",
+           "diffuse_cuda", "masks_to_flows", "remove_bad_flow_masks",
+           "fill_holes_and_remove_small_masks", "compute_masks"]
 
 RPAD = 20  # the histogram's padding
 # Neighbours of a pixel as Cellpose lists them: itself, then (dy, dx).
@@ -49,28 +61,91 @@ _NY = (0, -1, 1, 0, 0, -1, -1, 1, 1)
 _NX = (0, 0, 0, -1, 1, -1, 1, -1, 1)
 
 
-def _repeat(step, times: int, device) -> None:
-    """``step()`` ``times`` times. On a card the first runs as it is and
-    the others as replays of a CUDA graph of one step, captured for this
-    call: a step is a few small kernels, whose launches from the host
-    would take longer than the card takes to run them."""
-    if times <= 0:
-        return
-    step()
-    if torch.device(device).type != "cuda":
-        for _ in range(times - 1):
-            step()
-        return
-    graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        graph.capture_begin()
-        step()
-        graph.capture_end()
-    torch.cuda.current_stream(device).wait_stream(side)
-    for _ in range(times - 1):
-        graph.replay()
+def _dispatch(device, plain, kernel):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if device.type == "cuda":
+        return kernel
+    if device.type == "cpu":
+        return plain
+    raise ValueError(f"no flow dynamics for a tensor on {device}")
+
+
+def _check_cuda(name, tensors, dtypes):
+    """Raise unless every tensor is on one CUDA device with its dtype."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    for t, dtype in zip(tensors, dtypes):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} takes {dtype}, got {t.dtype}")
+
+
+def _raise_on(err, what):
+    if err:
+        from deepcalcium_torch.ops._build import load_library
+
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                           f"({load_library().dc_error_string(err).decode()})")
+
+
+def euler_field(dP: torch.Tensor) -> torch.Tensor:
+    """The field (2, H, W) float32 of ``dP`` (2, H, W) in grid_sample's
+    units: channel 0 moves x and channel 1 y, as grid_sample's grid is
+    (x, y)."""
+    h, w = dP.shape[1:]
+    return torch.stack((dP[1] * (2.0 / (w - 1)), dP[0] * (2.0 / (h - 1))))
+
+
+def euler_steps(im: torch.Tensor, inds: torch.Tensor,
+                niter: int) -> torch.Tensor:
+    """Plain Euler steps on any device: end points (n, 2) int64 (y, x) of
+    the pixels ``inds`` (n, 2) after ``niter`` steps through the field
+    ``im`` (:func:`euler_field`), from positions normalised as
+    ``2 p / (L - 1) - 1``."""
+    h, w = im.shape[1:]
+    g = torch.stack((inds[:, 1].float() / (w - 1),
+                     inds[:, 0].float() / (h - 1)), dim=-1)
+    g = (g * 2 - 1)[None, None].contiguous()
+    for _ in range(niter):
+        d = F.grid_sample(im[None], g, align_corners=False)
+        g.add_(d.permute(0, 2, 3, 1)).clamp_(-1.0, 1.0)
+    p = (g[0, 0] + 1) * 0.5
+    return torch.stack((p[:, 1] * (h - 1), p[:, 0] * (w - 1)), dim=1).long()
+
+
+def euler_steps_cuda(im: torch.Tensor, inds: torch.Tensor,
+                     niter: int) -> torch.Tensor:
+    """:func:`euler_steps` as one launch of ``csrc/flows.cu``'s Euler
+    kernel, bitwise the plain version on the card: a contiguous float32
+    ``im`` (2, H, W) and int64 ``inds`` (n, 2) on one card."""
+    _check_cuda("euler_steps_cuda", (im, inds), (torch.float32, torch.int64))
+    if im.dim() != 3 or im.shape[0] != 2 or min(im.shape[1:]) < 2 or \
+            inds.dim() != 2 or inds.shape[1] != 2:
+        raise ValueError(f"euler_steps_cuda takes im (2, H, W), H and W at "
+                         f"least 2, and inds (n, 2), got {tuple(im.shape)} "
+                         f"and {tuple(inds.shape)}")
+    if not (im.is_contiguous() and inds.is_contiguous()):
+        raise ValueError("euler_steps_cuda needs contiguous im and inds")
+    n = inds.shape[0]
+    out = torch.empty((n, 2), dtype=torch.int64, device=inds.device)
+    if n == 0:
+        return out
+    from deepcalcium_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(inds.device):
+        err = lib.dc_euler_steps(
+            ctypes.c_void_p(im.data_ptr()), im.shape[1], im.shape[2],
+            ctypes.c_void_p(inds.data_ptr()), n, int(niter),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(err, "Euler kernel")
+    euler_steps_cuda.launches += 1
+    return out
+
+
+euler_steps_cuda.launches = 0
 
 
 def follow_flows(dP: torch.Tensor, inds: torch.Tensor,
@@ -78,20 +153,8 @@ def follow_flows(dP: torch.Tensor, inds: torch.Tensor,
     """End points (n, 2) int64 (y, x) of the pixels ``inds`` (n, 2) after
     ``niter`` steps through ``dP`` (2, H, W), which is zero outside the
     foreground and already divided by 5."""
-    h, w = dP.shape[1:]
-    # Channel 0 moves x and channel 1 y, as grid_sample's grid is (x, y).
-    im = torch.stack((dP[1] * (2.0 / (w - 1)), dP[0] * (2.0 / (h - 1))))[None]
-    pt = torch.stack((inds[:, 1].float() / (w - 1),
-                      inds[:, 0].float() / (h - 1)), dim=-1)
-    pt = (pt * 2 - 1)[None, None].contiguous()
-
-    def step():
-        d = F.grid_sample(im, pt, align_corners=False)
-        pt.add_(d.permute(0, 2, 3, 1)).clamp_(-1.0, 1.0)
-
-    _repeat(step, niter, dP.device)
-    p = (pt[0, 0] + 1) * 0.5
-    return torch.stack((p[:, 1] * (h - 1), p[:, 0] * (w - 1)), dim=1).long()
+    return _dispatch(dP.device, euler_steps, euler_steps_cuda)(
+        euler_field(dP), inds.contiguous(), niter)
 
 
 def get_masks(p: torch.Tensor, inds: torch.Tensor, shape,
@@ -146,10 +209,27 @@ def get_masks(p: torch.Tensor, inds: torch.Tensor, shape,
     return labels.view(h, w), n_seeds, dropped
 
 
-def masks_to_flows(labels: torch.Tensor):
-    """(mu (2, P) float64, y, x (P,) of the mask pixels, padded by one,
-    their labels, steps): the unit flows that diffusion from each mask's
-    centre gives, in float64, at every mask pixel."""
+class Diffusion(NamedTuple):
+    """What the flow check's diffusion runs on: the P mask pixels of the
+    labels padded by one (``y``, ``x``, in nonzero's order), their labels
+    ``lab``, their 9 neighbours' flat indices in the padded image ``nb``
+    (9, P) and slots ``nbs`` (9, P: the neighbour's place among the P, or P
+    for one outside the pixel's mask), the slots of the masks' centres
+    ``at``, the number of ``steps``, the pixels of each label ``sizes``
+    (n + 1,: label 0 has none) and the largest mask's ``max_len``."""
+    y: torch.Tensor
+    x: torch.Tensor
+    lab: torch.Tensor
+    nb: torch.Tensor
+    nbs: torch.Tensor
+    at: torch.Tensor
+    steps: int
+    sizes: torch.Tensor
+    max_len: int
+
+
+def diffusion_inputs(labels: torch.Tensor) -> Diffusion:
+    """The :class:`Diffusion` of ``labels`` (H, W), which hold a mask."""
     h, w = labels.shape
     wp = w + 2
     lp = F.pad(labels, (1, 1, 1, 1))
@@ -166,11 +246,13 @@ def masks_to_flows(labels: torch.Tensor):
     xmax = torch.zeros(n + 1, dtype=torch.int64, device=lab.device
                        ).scatter_reduce_(0, lab, x, "amax")
     present = ymax[1:] > 0
-    steps = 2 * int(((ymax - ymin + 2) + (xmax - xmin + 2))[1:][present].max())
+    ext = torch.where(present, ((ymax - ymin + 2) + (xmax - xmin + 2))[1:], 0)
+    sizes = torch.bincount(lab, minlength=n + 1)
+    ext, max_len = torch.stack((ext.max(), sizes.max())).tolist()
     # The centre: the pixel nearest the mean of the bounding box's local
     # coordinates, the first in raster order of equals.
     yl, xl = y - ymin[lab], x - xmin[lab]
-    npx = torch.bincount(lab, minlength=n + 1).double()
+    npx = sizes.double()
     ym = torch.zeros(n + 1, dtype=torch.int64, device=lab.device
                      ).index_add_(0, lab, yl).double() / npx
     xm = torch.zeros(n + 1, dtype=torch.int64, device=lab.device
@@ -185,31 +267,103 @@ def masks_to_flows(labels: torch.Tensor):
     pick = pick[1:][present]
     centres = y[pick] * wp + x[pick]
     nb = torch.stack([(y + dy) * wp + (x + dx) for dy, dx in zip(_NY, _NX)])
-    # T is held for the mask pixels alone, in nonzero's order, with one
-    # slot more that stays 0: a neighbour outside the pixel's mask reads it.
     npix = lab.numel()
     slot = torch.full((lp.numel(),), npix, dtype=torch.int64,
                       device=lab.device)
     slot[nb[0]] = torch.arange(npix, device=lab.device)
     nbs = torch.where(lp.view(-1)[nb] == lab[None], slot[nb], npix)
-    tc = torch.zeros(npix + 1, dtype=torch.float64, device=lab.device)
-    at, ones = slot[centres], torch.ones_like(centres, dtype=torch.float64)
+    return Diffusion(y, x, lab, nb, nbs, slot[centres], 2 * ext, sizes,
+                     max_len)
 
-    def step():
-        tc.index_add_(0, at, ones)
+
+def diffuse(d: Diffusion) -> torch.Tensor:
+    """Plain diffusion on any device: T (P,) float64 of the mask pixels of
+    ``d`` after ``d.steps`` steps from 0. A step adds 1 at the centres
+    ``d.at``, then sets every pixel to its 9 neighbours ``d.nbs`` summed one
+    after another in Cellpose's order, divided by 9."""
+    npix = d.lab.numel()
+    # T with one slot more that stays 0: a neighbour outside the pixel's
+    # mask reads it.
+    tc = torch.zeros(npix + 1, dtype=torch.float64, device=d.lab.device)
+    ones = torch.ones_like(d.at, dtype=torch.float64)
+    for _ in range(d.steps):
+        tc.index_add_(0, d.at, ones)
         # The 9 terms summed in Cellpose's neighbour order (a scan down the
         # first axis adds them one after another), then / 9: the result
         # does not hang on a reduction's order, which at a symmetric pixel
         # decides the sign of a central difference that is 0 exactly.
-        torch.div(torch.cumsum(tc[nbs], dim=0)[-1], 9, out=tc[:npix])
+        torch.div(torch.cumsum(tc[d.nbs], dim=0)[-1], 9, out=tc[:npix])
+    return tc[:npix]
 
-    _repeat(step, steps, lab.device)
-    t = torch.zeros(lp.numel(), dtype=torch.float64, device=lab.device)
-    t[nb[0]] = tc[:npix]
+
+def diffuse_cuda(d: Diffusion) -> torch.Tensor:
+    """:func:`diffuse` as one launch of ``csrc/flows.cu``'s diffusion
+    kernel, one block a mask, bitwise the plain version on the card: the
+    int64 tensors of ``d`` on one card. The pixels are grouped by label
+    here, on the card, and each neighbour slot becomes an index local to
+    its mask."""
+    _check_cuda("diffuse_cuda", (d.nbs, d.at, d.lab, d.sizes),
+                (torch.int64,) * 4)
+    npix = d.lab.numel()
+    if d.nbs.shape != (9, npix) or d.lab.dim() != 1 or d.at.dim() != 1 or \
+            d.sizes.dim() != 1:
+        raise ValueError(f"diffuse_cuda takes nbs (9, P), at (k,), lab (P,) "
+                         f"and sizes (n + 1,), got {tuple(d.nbs.shape)}, "
+                         f"{tuple(d.at.shape)}, {tuple(d.lab.shape)} and "
+                         f"{tuple(d.sizes.shape)}")
+    if 9 * npix >= 2 ** 31:
+        raise ValueError(f"diffuse_cuda takes under 2**31 / 9 pixels, got "
+                         f"{npix}")
+    dev = d.lab.device
+    if npix == 0:
+        return torch.zeros(0, dtype=torch.float64, device=dev)
+    # Raster order within a label (nonzero's) is kept by the stable sort;
+    # label L's pixels are [ends[L - 1], ends[L]) of the grouped order.
+    order = torch.argsort(d.lab, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(npix, device=dev)
+    ends = torch.cumsum(d.sizes, 0)
+    first = ends[d.lab - 1]
+    local = torch.cat((pos, pos.new_zeros(1)))[d.nbs] - first
+    nbl = torch.where(d.nbs < npix, local, -1)[:, order].t().int().contiguous()
+    n = d.sizes.numel() - 1
+    centre = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    centre[d.lab[d.at] - 1] = (pos[d.at] - first[d.at]).int()
+    ends = ends.int()
+    out = torch.empty(npix, dtype=torch.float64, device=dev)
+    scratch = torch.empty(2 * npix, dtype=torch.float64, device=dev)
+    from deepcalcium_torch.ops._build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.dc_diffuse(
+            ctypes.c_void_p(nbl.data_ptr()), ctypes.c_void_p(ends.data_ptr()),
+            ctypes.c_void_p(centre.data_ptr()), n, int(d.max_len),
+            int(d.steps), ctypes.c_void_p(scratch.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on(err, "diffusion kernel")
+    diffuse_cuda.launches += 1
+    return out[pos]
+
+
+diffuse_cuda.launches = 0
+
+
+def masks_to_flows(labels: torch.Tensor):
+    """(mu (2, P) float64, y, x (P,) of the mask pixels, padded by one,
+    their labels, steps): the unit flows that diffusion from each mask's
+    centre gives, in float64, at every mask pixel."""
+    d = diffusion_inputs(labels)
+    tc = _dispatch(labels.device, diffuse, diffuse_cuda)(d)
+    h, w = labels.shape
+    t = torch.zeros((h + 2) * (w + 2), dtype=torch.float64,
+                    device=labels.device)
+    t[d.nb[0]] = tc
     t = torch.log(1.0 + t)
-    mu = torch.stack((t[nb[2]] - t[nb[1]], t[nb[4]] - t[nb[3]]))
+    mu = torch.stack((t[d.nb[2]] - t[d.nb[1]], t[d.nb[4]] - t[d.nb[3]]))
     mu = mu / (1e-60 + (mu ** 2).sum(dim=0) ** 0.5)
-    return mu, y, x, lab, steps
+    return mu, d.y, d.x, d.lab, d.steps
 
 
 def remove_bad_flow_masks(labels: torch.Tensor, dP: torch.Tensor,
@@ -227,7 +381,7 @@ def remove_bad_flow_masks(labels: torch.Tensor, dP: torch.Tensor,
         err += torch.zeros(n + 1, dtype=torch.float64, device=lab.device
                            ).index_add_(0, lab, (mu[c] - net[c]) ** 2) / npx
     bad = err > threshold
-    bad[0] = False
+    bad[:1] = False  # a slice: an element's assignment would synchronise
     return torch.where(bad[labels], 0, labels), steps, int(bad.sum())
 
 
@@ -295,11 +449,14 @@ def compute_masks(dP: torch.Tensor, inds: torch.Tensor, niter: int = 200,
     the caller)."""
     shape = dP.shape[1:]
     dropped = 0
+    launched = euler_steps_cuda.launches + diffuse_cuda.launches
     labels = torch.zeros(shape, dtype=torch.int64, device=dP.device)
     if inds.shape[0]:
         with span("cellpose.follow_flows"):
             fg = torch.zeros(shape, dtype=dP.dtype, device=dP.device)
-            fg[inds[:, 0], inds[:, 1]] = 1.0
+            # A 1 on the card: a Python scalar would be copied from the host
+            # with a synchronisation.
+            fg.index_put_((inds[:, 0], inds[:, 1]), fg.new_ones(()))
             p = follow_flows(dP * fg / 5.0, inds, niter)
         with span("cellpose.get_masks"):
             labels, n_seeds, dropped = get_masks(p, inds, shape,
@@ -318,4 +475,6 @@ def compute_masks(dP: torch.Tensor, inds: torch.Tensor, niter: int = 200,
                                                        min_size)
     count("cellpose.masks", int(out.max()))
     count("cellpose.masks_dropped", dropped + small)
+    count("cellpose.loop_launches", euler_steps_cuda.launches
+          + diffuse_cuda.launches - launched)
     return out

@@ -282,6 +282,39 @@ def test_fewer_steps_change_slow_flows():
             fl, niter=n, flow_threshold=0.0))
 
 
+def test_cpu_dynamics_launch_no_kernel():
+    """On the CPU the two step loops take their plain versions: a call
+    records ``cellpose.loop_launches`` 0 under a profiler and leaves both
+    kernels' launch counts as they were."""
+    import time
+
+    before = (flows.euler_steps_cuda.launches, flows.diffuse_cuda.launches)
+    fl = _target_flows(_neurons(1), noise=0.5, seed=1)
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = _program(fl)
+    counts = {c.name: c.value for c in profiling.counted(t0, time.time_ns())}
+    assert got.max() > 0 and counts["cellpose.qc_iters"] > 0
+    assert counts["cellpose.loop_launches"] == 0
+    assert (flows.euler_steps_cuda.launches,
+            flows.diffuse_cuda.launches) == before == (0, 0)
+
+
+def test_flow_kernels_refuse_cpu_tensors():
+    """The kernels' wrappers take CUDA tensors only; the dispatch refuses a
+    device with no path."""
+    fl = _target_flows(_neurons(3), noise=0.5, seed=3)
+    t = torch.from_numpy(fl)
+    inds = torch.nonzero(t[2] > 0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flows.euler_steps_cuda(flows.euler_field(t[:2] / 5.0), inds, 10)
+    d = flows.diffusion_inputs(torch.from_numpy(_neurons(3)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flows.diffuse_cuda(d)
+    with pytest.raises(ValueError, match="no flow dynamics"):
+        flows.follow_flows(t[:2].to("meta"), inds.to("meta"), 10)
+
+
 # --- state dict, counters, wrapper -----------------------------------------
 
 def test_state_dict_loads_strictly(tmp_path):
@@ -498,9 +531,9 @@ def test_graph_replay_is_the_eager_net_on_card(card):
 
 @pytest.mark.cuda
 def test_dynamics_on_card_match_reference(card):
-    """On the card the Euler steps and the diffusion run as replays of
-    one-step CUDA graphs: the end points, the rebuilt flows and the labels
-    are bit for bit the reference's eager steps on the card."""
+    """On the card the Euler steps and the diffusion run as one kernel
+    launch each (``csrc/flows.cu``): the end points, the rebuilt flows and
+    the labels are bit for bit the reference's eager steps on the card."""
     labels = _neurons(2, n=40, shape=(128, 128))
     fl = _target_flows(labels, noise=1.0, seed=2)
     t = torch.from_numpy(fl).cuda()
@@ -515,3 +548,128 @@ def test_dynamics_on_card_match_reference(card):
     got = flows.compute_masks(t[:2], inds)
     assert got.max() > 0
     assert np.array_equal(got, ref_flows.compute_masks(fl, device="cuda"))
+
+
+def _edge_field(shape=(96, 80), seed=0):
+    """A random field whose steps are a sixth of the image's width (0.3 of
+    the normalised 2) a standard deviation: paths reach the clamp and the
+    image's edges, where corners fall outside."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((2,) + shape, generator=g) * 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["neurons", "edges", "one_pixel", "none"])
+def test_euler_kernel_is_the_plain_steps_on_card(card, case):
+    """The Euler kernel's end points are bit for bit the plain steps' (the
+    same float32 grid_sample, add and clamp) on the card: on noisy flows
+    of neurons, on a field whose paths reach the clamp and the image's
+    edges, for one pixel, and for none (no launch)."""
+    if case in ("edges", "one_pixel"):
+        dP = _edge_field(seed=1)
+        inds = torch.nonzero(torch.ones(dP.shape[1:], dtype=torch.bool))
+        inds = inds[:1] if case == "one_pixel" else inds
+    else:
+        fl = _target_flows(_neurons(4, n=40, shape=(128, 128)), noise=1.0,
+                           seed=4)
+        t = torch.from_numpy(fl)
+        inds = torch.nonzero(t[2] > (0 if case == "neurons" else 99))
+        dP = t[:2] * (t[2] > 0) / 5.0
+    im, inds = flows.euler_field(dP.cuda()), inds.cuda().contiguous()
+    n0 = flows.euler_steps_cuda.launches
+    got = flows.euler_steps_cuda(im, inds, 200)
+    want = flows.euler_steps(im, inds, 200)
+    assert got.dtype == torch.int64 and got.shape == (inds.shape[0], 2)
+    assert torch.equal(got, want)
+    assert flows.euler_steps_cuda.launches - n0 == (case != "none")
+    if case == "edges":
+        # Some paths end on the clamp, at the image's last row or column.
+        h, w = dP.shape[1:]
+        assert ((got[:, 0] == h - 1) | (got[:, 1] == w - 1)).any()
+        assert ((got[:, 0] == 0) | (got[:, 1] == 0)).any()
+
+
+def _big_disc():
+    """A disc over the shared memory a block can hold (16 bytes a pixel,
+    double-buffered float64), beside a small one."""
+    cap = getattr(torch.cuda.get_device_properties(0),
+                  "shared_memory_per_block_optin", 232448) // 16
+    r = int(np.ceil(np.sqrt(cap / np.pi))) + 3
+    shape = (2 * r + 24, 2 * r + 24)
+    labels = (_disc(shape, r + 2, r + 2, r) * 1
+              + _disc(shape, 2 * r + 17, 2 * r + 17, 5) * 2).astype(np.int64)
+    assert (labels == 1).sum() > cap
+    return labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["neurons", "one_mask", "beyond_shared"])
+def test_diffusion_kernel_is_the_plain_diffusion_on_card(card, case):
+    """The diffusion kernel's T is bit for bit the plain steps' (float64,
+    9 terms in Cellpose's order, then / 9) on the card: for many touching
+    neurons, for one mask whose label leaves gaps below it, and for a mask
+    too large for shared memory, which runs from the global buffer."""
+    if case == "neurons":
+        labels = _neurons(6, n=40, shape=(128, 128))
+    elif case == "one_mask":
+        labels = (_disc((40, 40), 20, 18, 9) * 3).astype(np.int64)
+    else:
+        labels = _big_disc()
+    d = flows.diffusion_inputs(torch.from_numpy(labels).cuda())
+    n0 = flows.diffuse_cuda.launches
+    got = flows.diffuse_cuda(d)
+    want = flows.diffuse(d)
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert (got > 0).all() and torch.equal(got, want)
+    assert flows.diffuse_cuda.launches - n0 == 1
+    none = torch.zeros(0, dtype=torch.int64, device="cuda")
+    empty = flows.Diffusion(none, none, none, none.view(9, 0), none.view(9, 0),
+                            none, 5, none.new_zeros(1), 0)
+    assert flows.diffuse_cuda(empty).numel() == 0
+    assert flows.diffuse_cuda.launches - n0 == 1
+
+
+@pytest.mark.cuda
+def test_flow_kernels_refuse_what_they_do_not_take(card):
+    """A wrong dtype, a non-contiguous input, tensors on two devices or a
+    wrong shape raise before any launch."""
+    fl = _target_flows(_neurons(3), noise=0.5, seed=3)
+    t = torch.from_numpy(fl)
+    im = flows.euler_field(t[:2].cuda() / 5.0)
+    inds = torch.nonzero(t[2] > 0).cuda().contiguous()
+    d = flows.diffusion_inputs(torch.from_numpy(_neurons(3)).cuda())
+    n0 = (flows.euler_steps_cuda.launches, flows.diffuse_cuda.launches)
+    with pytest.raises(TypeError):
+        flows.euler_steps_cuda(im.double(), inds, 10)
+    with pytest.raises(TypeError):
+        flows.euler_steps_cuda(im, inds.int(), 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        flows.euler_steps_cuda(im, inds.t().contiguous().t(), 10)
+    with pytest.raises(ValueError, match="one device"):
+        flows.euler_steps_cuda(im, inds.cpu(), 10)
+    with pytest.raises(ValueError, match="takes im"):
+        flows.euler_steps_cuda(im[:1], inds, 10)
+    with pytest.raises(TypeError):
+        flows.diffuse_cuda(d._replace(nbs=d.nbs.int()))
+    with pytest.raises(ValueError, match="one device"):
+        flows.diffuse_cuda(d._replace(at=d.at.cpu()))
+    with pytest.raises(ValueError, match="takes nbs"):
+        flows.diffuse_cuda(d._replace(nbs=d.nbs[:8]))
+    assert (flows.euler_steps_cuda.launches,
+            flows.diffuse_cuda.launches) == n0
+
+
+@pytest.mark.cuda
+def test_card_dynamics_take_one_launch_a_loop(card):
+    """A call on the card records ``cellpose.loop_launches`` 2: the Euler
+    steps and the diffusion went through their kernels."""
+    import time
+
+    fl = _target_flows(_neurons(2, n=40, shape=(128, 128)), noise=1.0, seed=2)
+    t = torch.from_numpy(fl).cuda()
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        flows.compute_masks(t[:2], torch.nonzero(t[2] > 0))
+    counts = {c.name: c.value for c in profiling.counted(t0, time.time_ns())}
+    assert counts["cellpose.qc_iters"] > 0
+    assert counts["cellpose.loop_launches"] == 2
