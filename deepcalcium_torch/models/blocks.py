@@ -16,23 +16,19 @@ Train-mode BN is written out here rather than taken from
 and ``F.batch_norm`` updates ``running_var`` with the unbiased one.
 """
 
-import threading
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from deepcalcium_torch.parallel.mesh import psum
-from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["BN_EPS", "Conv2d", "Conv1d", "ConvTranspose2x2", "BatchNorm",
            "conv2d", "conv1d", "tconv2x2", "maxpool2", "pool2",
            "maxpool1d_same", "upsample1d", "batch_norm", "batch_stats",
            "dropout", "dropout_with_mask", "fold_bn", "BNTensors",
-           "he_normal_", "kernel_init_", "INIT_SCHEMES", "upload_packed",
-           "holding"]
+           "he_normal_", "kernel_init_", "INIT_SCHEMES"]
 
 BN_EPS = 1e-3  # Keras 2.0.6 BatchNormalization default epsilon.
 
@@ -228,6 +224,8 @@ class Conv2d(nn.Module):
     """SAME conv holder: ``weight`` OIHW, ``bias`` (Cout,). Fans are
     k * k * Cin and k * k * Cout (``blocks.init_conv``)."""
 
+    out_dim = 0  # the kernel's output-channel dim (``fold_bn``)
+
     def __init__(self, cin, cout, k, generator, init_scheme="he_normal"):
         super().__init__()
         self.weight = nn.Parameter(kernel_init_(
@@ -242,6 +240,8 @@ class Conv2d(nn.Module):
 class Conv1d(nn.Module):
     """SAME 1-D conv holder: ``weight`` OIW, ``bias`` (Cout,); he_normal
     with fan_in k * Cin (``blocks.init_conv1d``)."""
+
+    out_dim = 0
 
     def __init__(self, cin, cout, k, generator):
         super().__init__()
@@ -258,6 +258,8 @@ class ConvTranspose2x2(nn.Module):
 
     fan_in is 4 * Cout and fan_out 4 * Cin, the Keras quirk the JAX package
     keeps (``blocks.init_tconv``: Keras reads fans off the raw HWOI shape)."""
+
+    out_dim = 1
 
     def __init__(self, cin, cout, generator, init_scheme="he_normal"):
         super().__init__()
@@ -303,69 +305,3 @@ class BatchNorm(nn.Module):
         self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
-
-# --- the inference builds' packed upload and layers made without a draw --------
-
-# The host buffers that ``upload_packed`` packs into, page-locked (True) or
-# not: kept across calls, grown when a larger net needs more, overwritten by
-# every call. A staging buffer, not a cache: nothing of a call is read back.
-_staging: dict = {}
-_staging_lock = threading.Lock()
-
-
-def upload_packed(leaves, device):
-    """``leaves``, (label, array, shape) triples, as float32 views of one
-    buffer on ``device``, in their order.
-
-    Each array (numpy or JAX, or a CPU tensor) is cast to float32 as
-    ``np.array(a, dtype=np.float32)`` casts it and copied into a host
-    staging buffer, page-locked for a CUDA device (the span ``net.pack``);
-    the buffer then goes to ``device`` in one synchronous copy
-    (``net.upload``), so that the next call may overwrite it. An array of
-    another shape than its triple's raises ``ValueError``."""
-    device = torch.device(device)
-    pinned = device.type == "cuda"
-    with _staging_lock:
-        with span("net.pack"):
-            arrays = []
-            for label, a, shape in leaves:
-                a = np.asarray(a)
-                if a.shape != tuple(shape):
-                    raise ValueError(f"{label}: shape {a.shape}, expected "
-                                     f"{tuple(shape)}")
-                arrays.append(a)
-            n = sum(a.size for a in arrays)
-            stage = _staging.get(pinned)
-            if stage is None or stage.numel() < n:
-                stage = _staging[pinned] = torch.empty(
-                    n, dtype=torch.float32, pin_memory=pinned)
-            host = stage.numpy()
-            o = 0
-            for a in arrays:
-                np.copyto(host[o:o + a.size].reshape(a.shape), a,
-                          casting="unsafe")
-                o += a.size
-        with span("net.upload"):
-            buf = torch.empty(n, dtype=torch.float32, device=device)
-            buf.copy_(stage[:n])
-    out, o = [], 0
-    for a in arrays:
-        out.append(buf[o:o + a.size].view(a.shape))
-        o += a.size
-    return out
-
-
-def holding(cls, params, buffers=None, **attrs):
-    """A ``cls`` module made without its constructor, so that nothing is
-    drawn: its attributes are ``attrs``, its parameters the tensors of
-    ``params`` and its buffers those of ``buffers`` (name to tensor, in
-    order). The inference builds of ``unet2d`` and ``unet1d`` assemble their
-    nets of these."""
-    m = cls.__new__(cls)
-    nn.Module.__init__(m)
-    m.__dict__.update(attrs)
-    for name, t in params.items():
-        m.register_parameter(name, nn.Parameter(t))
-    for name, t in (buffers or {}).items():
-        m.register_buffer(name, t)
-    return m

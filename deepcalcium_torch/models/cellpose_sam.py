@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepcalcium_torch.models.blocks import upload_packed
+from deepcalcium_torch.models.netweights import upload_packed
 from deepcalcium_torch.ops.attention import (attention, rel_pos_index,
                                              resample_rel_pos)
 from deepcalcium_torch.utils.profiling import span
@@ -205,7 +205,7 @@ def inference_net(state_dict, cfg: Config = Config(),
                   compute_dtype=torch.bfloat16, device=None) -> CellposeSAM:
     """The net of a published-layout state dict (tensors or arrays) on
     ``device``: every weight packed into one buffer and copied at once
-    (:func:`blocks.upload_packed`: ``net.pack``, ``net.upload``), the
+    (:func:`netweights.upload_packed`: ``net.pack``, ``net.upload``), the
     tables re-sampled and indexed and the compute-dtype copies made there
     (``net.load``), the net assembled round them (``net.init``)."""
     check_state_dict(state_dict, cfg)

@@ -30,7 +30,8 @@ import queue
 import numpy as np
 import torch
 
-from deepcalcium_torch.models.unet2d import inference_net
+from deepcalcium_torch.models.netweights import inference_route
+from deepcalcium_torch.models.unet2d import UNet2DS
 from deepcalcium_torch.parallel.mesh import all_gather, check_mesh
 from deepcalcium_torch.train.evaluate import _reflect_index
 from deepcalcium_torch.train.sampler import Prefetcher
@@ -55,8 +56,8 @@ def _resolve_apply(apply_fn, params, state, compute_dtype, device):
     forward for an upsampling-mode one."""
     if apply_fn is not None:
         return apply_fn
-    return inference_net(params, state, compute_dtype, device,
-                         fold="up0_tconv" in params)
+    return inference_route(UNet2DS, None, params, state, compute_dtype,
+                           device, "auto", "up0_tconv" in params)
 
 
 def _staging_dtype(np_dtype) -> torch.dtype:

@@ -16,7 +16,9 @@ does; inside it runs NCW. The net:
 Sub-modules are named by the JAX package's ``LAYER_ORDER`` keys, so
 ``from_jax_params`` / ``to_jax_params`` move weights between the packages
 and :func:`jax_tree` / :func:`torch_tensors` move any per-parameter tensors
-(Adam's moments) the same way.
+(Adam's moments) the same way. These, the direct build (``inference_net``)
+and the fold are ``models.netweights``'s, bound to ``UNet1D``; the class
+gives them what is its own.
 
 ``fold()`` ports the exact rewrites of ``unet1d_fast.apply_fast_t``: BN
 folded into every conv, and the head as float32 logits, the margin
@@ -25,19 +27,23 @@ ported: it packs time into channels to fill the TPU's 128-lane matrix
 unit, and on Hopper it would only multiply the thin levels' FLOPs.
 """
 
-import copy
-import inspect
+import functools
 
 import numpy as np
 import torch
 from torch import nn
 
 from deepcalcium_torch.models import blocks as B
-from deepcalcium_torch.utils.profiling import span
+from deepcalcium_torch.models import netweights as W
+from deepcalcium_torch.models.blocks import fold_bn
+from deepcalcium_torch.models.netweights import (jax_tree, load_jax_params_,
+                                                 param_count, to_jax_params,
+                                                 torch_tensors)
 
-__all__ = ["layer_order", "LAYER_ORDER", "UNet1D", "from_jax_params",
-           "inference_net", "to_jax_params", "load_jax_params_", "jax_tree",
-           "torch_tensors", "param_count", "forward_flops"]
+__all__ = ["layer_order", "LAYER_ORDER", "UNet1D", "fold_bn",
+           "from_jax_params", "inference_net", "to_jax_params",
+           "load_jax_params_", "jax_tree", "torch_tensors", "param_count",
+           "forward_flops"]
 
 _F = 32
 
@@ -78,17 +84,6 @@ LAYER_ORDER = layer_order()
 _K = {"conv5": 5, "conv1": 1}
 
 
-def _layers(nfb: int):
-    """:func:`layer_order` as (name, kind, cin, cout): the input channels
-    of each layer as the net wires it (a BN's are its conv's outputs)."""
-    cin = 1
-    for name, kind, cout in layer_order(nfb):
-        if name in _CONCAT_CIN:
-            cin = sum(_CONCAT_CIN[name]) * nfb
-        yield name, kind, cin, cout
-        cin = cout
-
-
 class UNet1D(nn.Module):
     """UNet1D forward (``deepcalcium_tpu.models.unet1d.apply``).
 
@@ -108,26 +103,65 @@ class UNet1D(nn.Module):
         drp: base dropout rate of the training forward (0.05 published).
     """
 
+    _kernel_perm = (2, 1, 0)  # JAX WIO kernels to PyTorch's OIW
+
     def __init__(self, nfb: int = _F, margin: int = 4, compute_dtype=None,
                  generator=None, drp: float = 0.05):
         super().__init__()
-        self.nfb, self.margin = nfb, int(margin)
-        self.compute_dtype, self.drp = compute_dtype, drp
-        self.folded = False
+        self._configure(nfb, margin, compute_dtype, drp)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        for name, kind, cin, cout in _layers(nfb):
+        for name, kind, cin, cout in self._layers():
             if kind == "bn":
-                self.add_module(name, B.BatchNorm(cout, 0.99))
+                self.add_module(name, B.BatchNorm(cout, self._momentum(name)))
             else:
                 self.add_module(name, B.Conv1d(cin, cout, _K[kind],
                                                generator))
 
-    def jax_tree(self, tensors=None):
-        return jax_tree(self, tensors)
+    def _configure(self, nfb=_F, margin=4, compute_dtype=None, drp=0.05):
+        """The net's attributes, set here for the constructor and for the
+        direct build alike."""
+        self.nfb, self.margin = nfb, int(margin)
+        self.compute_dtype, self.drp = compute_dtype, drp
+        self.folded = False
 
-    def torch_tensors(self, tree):
-        return torch_tensors(self, tree)
+    @staticmethod
+    def _arch(params):
+        """The width of a net, read off its JAX params."""
+        return {"nfb": int(np.shape(params["enc0a_conv"]["kernel"])[-1])}
+
+    def _layers(self):
+        """:func:`layer_order` as (name, kind, cin, cout): the input
+        channels of each layer as the net wires it (a BN's are its conv's
+        outputs)."""
+        cin = 1
+        for name, kind, cout in layer_order(self.nfb):
+            if name in _CONCAT_CIN:
+                cin = sum(_CONCAT_CIN[name]) * self.nfb
+            yield name, kind, cin, cout
+            cin = cout
+
+    @staticmethod
+    def _kernel(kind, cin, cout):
+        """The module holding a conv layer, and its kernel's shape in the
+        JAX package's layout."""
+        return B.Conv1d, (_K[kind], cin, cout)
+
+    @staticmethod
+    def _momentum(name: str) -> float:
+        """Keras momentum of every BN."""
+        return 0.99
+
+    @staticmethod
+    def _fold_head(w, b):
+        """The head has no BN and keeps its logits, pooled before the
+        sigmoid of their difference in the forward: a copy of its bias, so
+        that a folded net built on the device holds nothing of the
+        uploaded buffer."""
+        return w, b.clone()
+
+    jax_tree = jax_tree
+    torch_tensors = torch_tensors
 
     def _cbr(self, name, h, train, mesh=None):
         y = getattr(self, f"{name}_conv")(h, self.compute_dtype)
@@ -179,187 +213,13 @@ class UNet1D(nn.Module):
         logits = B.maxpool1d_same(logits, self.margin + 1)
         return torch.softmax(logits, dim=1)[:, -1]
 
-    @torch.no_grad()
-    def fold(self) -> "UNet1D":
-        """A copy with every BN folded into its conv, in float32, and the
-        head of ``unet1d_fast.apply_fast_t`` (exact up to float rounding).
-        It runs inference only."""
-        if self.folded:
-            return self
-        m = copy.deepcopy(self)
-        for name, kind, _ in layer_order(self.nfb):
-            if kind == "bn":
-                conv = getattr(m, name.replace("_bn", "_conv"))
-                w, b = B.fold_bn(conv.weight, conv.bias, getattr(m, name))
-                conv.weight.copy_(w)
-                conv.bias.copy_(b)
-                delattr(m, name)
-        m.folded = True
-        return m
+    # A copy with BN folded into every conv, in float32, for the head of
+    # ``unet1d_fast.apply_fast_t``.
+    fold = W.fold
 
 
-def _leaves(kind):
-    """(torch attribute, JAX leaf) pairs of a layer's parameters."""
-    if kind == "bn":
-        return (("weight", "gamma"), ("bias", "beta"))
-    return (("weight", "kernel"), ("bias", "bias"))
-
-
-def jax_tree(model: UNet1D, tensors=None):
-    """``{layer: {leaf: float32 ndarray}}`` in the JAX package's params
-    layout: of the model's parameters, or of ``tensors``, a map from each
-    parameter's name (``"enc0a_conv.weight"``) to a tensor of its shape,
-    such as Adam's moments. WIO kernels are PyTorch's OIW permuted by
-    (2, 1, 0). Arrays are copies."""
-    if model.folded:
-        raise ValueError("a folded model has no BN layers to export")
-    out = {}
-    for name, kind, _ in layer_order(model.nfb):
-        layer = getattr(model, name)
-        for attr, leaf in _leaves(kind):
-            t = (getattr(layer, attr) if tensors is None
-                 else tensors[f"{name}.{attr}"])
-            a = t.detach().to("cpu", torch.float32).numpy()
-            a = a.transpose(2, 1, 0) if leaf == "kernel" else a
-            out.setdefault(name, {})[leaf] = np.array(a, order="C")
-    return out
-
-
-def torch_tensors(model: UNet1D, tree):
-    """The inverse of :func:`jax_tree`: ``{parameter name: float32 CPU
-    tensor}`` in PyTorch's layouts from a tree in the JAX params layout."""
-    out = {}
-    for name, kind, _ in layer_order(model.nfb):
-        for attr, leaf in _leaves(kind):
-            t = torch.from_numpy(np.array(tree[name][leaf], dtype=np.float32))
-            out[f"{name}.{attr}"] = (t.permute(2, 1, 0).contiguous()
-                                     if leaf == "kernel" else t)
-    return out
-
-
-@torch.no_grad()
-def load_jax_params_(model: UNet1D, params, state) -> UNet1D:
-    """Copy (params, state) in the JAX package's layout into ``model`` in
-    place, on whatever device it lives."""
-    sd = torch_tensors(model, params)
-    for name, kind, _ in layer_order(model.nfb):
-        if kind == "bn":
-            sd[f"{name}.running_mean"] = torch.from_numpy(
-                np.array(state[name]["mean"], dtype=np.float32))
-            sd[f"{name}.running_var"] = torch.from_numpy(
-                np.array(state[name]["var"], dtype=np.float32))
-    model.load_state_dict(sd)
-    return model
-
-
-def _jax_leaves(kind, cin, cout):
-    """(tree, leaf, shape) of a layer's leaves in the JAX package's layout
-    and order: WIO kernels."""
-    if kind == "bn":
-        return (("params", "gamma", (cout,)), ("params", "beta", (cout,)),
-                ("state", "mean", (cout,)), ("state", "var", (cout,)))
-    return (("params", "kernel", (_K[kind], cin, cout)),
-            ("params", "bias", (cout,)))
-
-
-@torch.no_grad()
-def _build(params, state, compute_dtype, device, fold, kwargs) -> UNet1D:
-    """A ``UNet1D`` on ``device`` straight from (params, state), no weight
-    drawn: every leaf packed into one buffer and copied to the device at
-    once (:func:`blocks.upload_packed`), the kernels permuted to OIW there
-    (``net.load``), BN folded there when ``fold`` (``net.fold``:
-    :func:`blocks.fold_bn`, as :meth:`UNet1D.fold` computes it), and the
-    module assembled around the tensors (``net.init``). The weights are
-    bitwise those of the drawn, loaded, moved (and folded) net."""
-    nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
-    args = inspect.signature(UNet1D).bind(nfb, compute_dtype=compute_dtype,
-                                           **kwargs)
-    args.apply_defaults()
-    attrs = dict(args.arguments, folded=fold)
-    attrs["margin"] = int(attrs["margin"])
-    del attrs["generator"]
-    layers = list(_layers(nfb))
-    trees = {"params": params, "state": state}
-    flat = iter(B.upload_packed(
-        [(f"{name}.{leaf}", trees[tree][name][leaf], shape)
-         for name, kind, cin, cout in layers
-         for tree, leaf, shape in _jax_leaves(kind, cin, cout)],
-        "cpu" if device is None else device))
-    # Unfolded, each bias and BN tensor gets storage of its own: views of
-    # one buffer share its autograd version, so a training forward's
-    # in-place BN update would void what its backward saved.
-    own = (lambda x: x) if fold else torch.clone
-    t = {}
-    with span("net.load"):
-        for name, kind, _, _ in layers:
-            if kind == "bn":
-                t[name] = B.BNTensors(*(own(next(flat)) for _ in range(4)))
-            else:
-                t[name] = (next(flat).permute(2, 1, 0).contiguous(),
-                           own(next(flat)))
-    if fold:
-        with span("net.fold"):
-            for name, kind, _, _ in layers:
-                if kind == "bn":
-                    conv = name.replace("_bn", "_conv")
-                    t[conv] = B.fold_bn(*t[conv], t.pop(name))
-            # The head has no BN: a copy of its bias, so that the folded
-            # net holds nothing of the uploaded buffer.
-            w, b = t["head_conv"]
-            t["head_conv"] = (w, b.clone())
-    with span("net.init"):
-        net = B.holding(UNet1D, {}, **attrs)
-        for name, kind, _, _ in layers:
-            if name not in t:
-                continue
-            if kind == "bn":
-                bn = t[name]
-                layer = B.holding(
-                    B.BatchNorm, {"weight": bn.weight, "bias": bn.bias},
-                    {"running_mean": bn.running_mean,
-                     "running_var": bn.running_var}, momentum=0.99)
-            else:
-                w, b = t[name]
-                layer = B.holding(B.Conv1d, {"weight": w, "bias": b})
-            net.add_module(name, layer)
-    return net
-
-
-def from_jax_params(params, state, compute_dtype=None, device=None,
-                    **kwargs) -> UNet1D:
-    """Build a ``UNet1D`` from the JAX package's (params, state) dicts
-    (numpy or JAX arrays, or CPU tensors) on ``device`` (None: the CPU);
-    nfb is read off the shapes. ``kwargs`` go where ``UNet1D`` takes them
-    (``margin``, ``drp``). No weight is drawn: the net is bitwise
-    ``UNet1D(...)`` with :func:`load_jax_params_` and ``.to(device)``."""
-    return _build(params, state, compute_dtype, device, False, kwargs)
-
-
-def inference_net(params, state, compute_dtype=None, device=None,
-                  fold=True, **kwargs) -> UNet1D:
-    """The eval-mode net of (params, state) on ``device``, folded
-    (bitwise ``from_jax_params(...).eval().fold()``) when ``fold``: no
-    unfolded net is built, nothing is drawn or deep-copied, and every
-    call reads the arrays it is given."""
-    return _build(params, state, compute_dtype, device, fold, kwargs).eval()
-
-
-def to_jax_params(model: UNet1D):
-    """The inverse of :func:`from_jax_params`: (params, state) dicts of
-    float32 numpy arrays in the JAX package's layout (copies)."""
-    params = jax_tree(model)
-    state = {}
-    for name, kind, _ in layer_order(model.nfb):
-        if kind == "bn":
-            bn = getattr(model, name)
-            state[name] = {"mean": bn.running_mean.detach().cpu().numpy().copy(),
-                           "var": bn.running_var.detach().cpu().numpy().copy()}
-    return params, state
-
-
-def param_count(model: UNet1D) -> int:
-    """Weights of the net, as the JAX package counts its params leaves."""
-    return sum(p.numel() for p in model.parameters())
+from_jax_params = functools.partial(W.from_jax_params, UNet1D)
+inference_net = functools.partial(W.inference_net, UNet1D)
 
 
 def forward_flops(t: int, nfb: int = _F) -> int:

@@ -7,15 +7,16 @@ BN and the sigmoid head). The public forward takes (B, H, W) and returns
 NCHW. Sub-modules are named by the JAX package's ``LAYER_ORDER`` keys, so
 ``from_jax_params`` / ``to_jax_params`` move weights between the packages
 layer by layer, and :func:`jax_tree` / :func:`torch_tensors` move any
-per-parameter tensors (Adam's moments) the same way.
+per-parameter tensors (Adam's moments) the same way. These, the direct
+build (``inference_net``) and the fold are ``models.netweights``'s, bound
+to ``UNet2DS``; the class gives them what is its own.
 
 The TPU lane-packing rewrites of ``unet2d_fast`` (``apply_fast_w`` and its
 kin) are not ported: they reshape tensors for the TPU's 128-lane matrix
 unit. ``fold()`` gives the folds alone, which is what ``fast="auto"`` runs.
 """
 
-import copy
-import inspect
+import functools
 
 import numpy as np
 import torch
@@ -23,8 +24,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from deepcalcium_torch.models import blocks as B
+from deepcalcium_torch.models import netweights as W
 from deepcalcium_torch.models.blocks import fold_bn
-from deepcalcium_torch.utils.profiling import span
+from deepcalcium_torch.models.netweights import (jax_tree, load_jax_params_,
+                                                 param_count, to_jax_params,
+                                                 torch_tensors)
 
 __all__ = ["layer_order", "LAYER_ORDER", "UNet2DS", "fold_bn",
            "from_jax_params", "inference_net", "to_jax_params",
@@ -68,23 +72,6 @@ def layer_order(nfb: int = _F, up_mode: str = "transpose"):
 LAYER_ORDER = layer_order()
 
 
-def _layers(nfb: int, up_mode: str):
-    """:func:`layer_order` as (name, kind, cin, cout): the input channels
-    of each layer as the net wires it (a BN's are its conv's outputs)."""
-    mult = 2 if up_mode == "transpose" else 3
-    cin = 1
-    for name, kind, cout in layer_order(nfb, up_mode):
-        if name in _DEC_IN:
-            cin = nfb * _DEC_IN[name] * mult
-        yield name, kind, cin, cout
-        cin = cout
-
-
-def _momentum(name: str) -> float:
-    """Keras momentum: 0.5 after the transpose convs, else 0.99."""
-    return 0.5 if name.startswith("up") else 0.99
-
-
 class UNet2DS(nn.Module):
     """UNet2DS forward (``deepcalcium_tpu.models.unet2d.apply``).
 
@@ -108,18 +95,18 @@ class UNet2DS(nn.Module):
             the init axis of the hyperparameter search.
     """
 
+    # JAX HWIO and (p, q, o, c) transpose-conv kernels to PyTorch's OIHW
+    # and (c, o, p, q); at k = s = 2 the transpose conv needs no flip.
+    _kernel_perm = (3, 2, 0, 1)
+
     def __init__(self, nfb: int = _F, up_mode: str = "transpose",
                  compute_dtype=None, generator=None, drp: float = 0.25,
                  remat: bool = False, init_scheme: str = "he_normal"):
         super().__init__()
-        self.nfb, self.up_mode = nfb, up_mode
-        self.compute_dtype = compute_dtype
-        self.drp, self.remat = drp, remat
-        self.init_scheme = init_scheme
-        self.folded = False
+        self._configure(nfb, up_mode, compute_dtype, drp, remat, init_scheme)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        for name, kind, cin, cout in _layers(nfb, up_mode):
+        for name, kind, cin, cout in self._layers():
             if kind == "conv3":
                 self.add_module(name, B.Conv2d(cin, cout, 3, generator,
                                                  init_scheme))
@@ -130,13 +117,59 @@ class UNet2DS(nn.Module):
                 self.add_module(name, B.ConvTranspose2x2(
                     cin, cout, generator, init_scheme))
             else:
-                self.add_module(name, B.BatchNorm(cout, _momentum(name)))
+                self.add_module(name, B.BatchNorm(cout, self._momentum(name)))
 
-    def jax_tree(self, tensors=None):
-        return jax_tree(self, tensors)
+    def _configure(self, nfb=_F, up_mode="transpose", compute_dtype=None,
+                   drp=0.25, remat=False, init_scheme="he_normal"):
+        """The net's attributes, set here for the constructor and for the
+        direct build alike."""
+        self.nfb, self.up_mode = nfb, up_mode
+        self.compute_dtype = compute_dtype
+        self.drp, self.remat = drp, remat
+        self.init_scheme = init_scheme
+        self.folded = False
 
-    def torch_tensors(self, tree):
-        return torch_tensors(self, tree)
+    @staticmethod
+    def _arch(params):
+        """The width and up mode of a net, read off its JAX params."""
+        return {"nfb": int(np.shape(params["enc0a_conv"]["kernel"])[-1]),
+                "up_mode": ("transpose" if "up0_tconv" in params
+                            else "upsampling")}
+
+    def _layers(self):
+        """:func:`layer_order` as (name, kind, cin, cout): the input
+        channels of each layer as the net wires it (a BN's are its conv's
+        outputs)."""
+        mult = 2 if self.up_mode == "transpose" else 3
+        cin = 1
+        for name, kind, cout in layer_order(self.nfb, self.up_mode):
+            if name in _DEC_IN:
+                cin = self.nfb * _DEC_IN[name] * mult
+            yield name, kind, cin, cout
+            cin = cout
+
+    @staticmethod
+    def _kernel(kind, cin, cout):
+        """The module holding a conv layer, and its kernel's shape in the
+        JAX package's layout."""
+        if kind == "tconv":
+            return B.ConvTranspose2x2, (2, 2, cout, cin)
+        k = 3 if kind == "conv3" else 1
+        return B.Conv2d, (k, k, cin, cout)
+
+    @staticmethod
+    def _momentum(name: str) -> float:
+        """Keras momentum: 0.5 after the transpose convs, else 0.99."""
+        return 0.5 if name.startswith("up") else 0.99
+
+    @staticmethod
+    def _fold_head(w, b):
+        """The 2-channel softmax head as one sigmoid channel:
+        softmax([a, b])[1] == sigmoid(b - a)."""
+        return w[1:] - w[:1], b[1:] - b[:1]
+
+    jax_tree = jax_tree
+    torch_tensors = torch_tensors
 
     def _cbr_train(self, conv, bn, h, mesh=None):
         y = conv(h, self.compute_dtype)
@@ -225,202 +258,13 @@ class UNet2DS(nn.Module):
         logits = head(h, self.compute_dtype)
         return torch.softmax(logits.float(), dim=1)[:, -1]
 
-    @torch.no_grad()
-    def fold(self) -> "UNet2DS":
-        """A copy with every BN folded into its conv and the 2-channel
-        softmax head turned into one sigmoid channel (exact up to float
-        rounding; ``unet2d_fast.fold_bn`` and its sigmoid head)."""
-        if self.folded:
-            return self
-        m = copy.deepcopy(self)
-        prev = None
-        for name, kind, _ in layer_order(self.nfb, self.up_mode):
-            if kind == "bn":
-                layer = getattr(m, prev)
-                w, b = fold_bn(layer.weight, layer.bias, getattr(m, name),
-                               out_dim=1 if prev.endswith("_tconv") else 0)
-                layer.weight.copy_(w)
-                layer.bias.copy_(b)
-                delattr(m, name)
-            prev = name
-        head = m.head_conv
-        head.weight = nn.Parameter(head.weight[1:] - head.weight[:1])
-        head.bias = nn.Parameter(head.bias[1:] - head.bias[:1])
-        m.folded = True
-        return m
+    # A copy with BN folded into every conv and the sigmoid head
+    # (``unet2d_fast.fold_bn`` and its sigmoid head).
+    fold = W.fold
 
 
-def _leaves(kind):
-    """(torch attribute, JAX leaf) pairs of a layer's parameters."""
-    if kind == "bn":
-        return (("weight", "gamma"), ("bias", "beta"))
-    return (("weight", "kernel"), ("bias", "bias"))
-
-
-def jax_tree(model: UNet2DS, tensors=None):
-    """``{layer: {leaf: float32 ndarray}}`` in the JAX package's params
-    layout: of the model's parameters, or of ``tensors``, a map from each
-    parameter's name (``"enc0a_conv.weight"``) to a tensor of its shape,
-    such as Adam's moments. Arrays are copies.
-
-    HWIO conv kernels and (p, q, o, c) transpose-conv kernels are PyTorch's
-    OIHW and (c, o, p, q) permuted by ``(2, 3, 1, 0)``; at k = s = 2 the
-    transpose conv needs no flip."""
-    if model.folded:
-        raise ValueError("a folded model has no BN layers to export")
-    out = {}
-    for name, kind, _ in layer_order(model.nfb, model.up_mode):
-        layer = getattr(model, name)
-        for attr, leaf in _leaves(kind):
-            t = (getattr(layer, attr) if tensors is None
-                 else tensors[f"{name}.{attr}"])
-            a = t.detach().to("cpu", torch.float32).numpy()
-            a = a.transpose(2, 3, 1, 0) if leaf == "kernel" else a
-            out.setdefault(name, {})[leaf] = np.array(a, order="C")
-    return out
-
-
-def torch_tensors(model: UNet2DS, tree):
-    """The inverse of :func:`jax_tree`: ``{parameter name: float32 CPU
-    tensor}`` in PyTorch's layouts from a tree in the JAX params layout."""
-    out = {}
-    for name, kind, _ in layer_order(model.nfb, model.up_mode):
-        for attr, leaf in _leaves(kind):
-            t = torch.from_numpy(np.array(tree[name][leaf], dtype=np.float32))
-            out[f"{name}.{attr}"] = (t.permute(3, 2, 0, 1).contiguous()
-                                     if leaf == "kernel" else t)
-    return out
-
-
-@torch.no_grad()
-def load_jax_params_(model: UNet2DS, params, state) -> UNet2DS:
-    """Copy (params, state) in the JAX package's layout into ``model`` in
-    place, on whatever device it lives."""
-    sd = torch_tensors(model, params)
-    for name, kind, _ in layer_order(model.nfb, model.up_mode):
-        if kind == "bn":
-            sd[f"{name}.running_mean"] = torch.from_numpy(
-                np.array(state[name]["mean"], dtype=np.float32))
-            sd[f"{name}.running_var"] = torch.from_numpy(
-                np.array(state[name]["var"], dtype=np.float32))
-    model.load_state_dict(sd)
-    return model
-
-
-def _jax_leaves(kind, cin, cout):
-    """(tree, leaf, shape) of a layer's leaves in the JAX package's layout
-    and order: HWIO kernels, (p, q, o, c) transpose-conv kernels."""
-    if kind == "bn":
-        return (("params", "gamma", (cout,)), ("params", "beta", (cout,)),
-                ("state", "mean", (cout,)), ("state", "var", (cout,)))
-    kernel = {"conv3": (3, 3, cin, cout), "conv1": (1, 1, cin, cout),
-              "tconv": (2, 2, cout, cin)}[kind]
-    return ("params", "kernel", kernel), ("params", "bias", (cout,))
-
-
-@torch.no_grad()
-def _build(params, state, compute_dtype, device, fold, kwargs) -> UNet2DS:
-    """A ``UNet2DS`` on ``device`` straight from (params, state), no weight
-    drawn: every leaf packed into one buffer and copied to the device at
-    once (:func:`blocks.upload_packed`), the kernels permuted to PyTorch's
-    layouts there (``net.load``), BN folded there when ``fold``
-    (``net.fold``: :func:`fold_bn` and the sigmoid head, as
-    :meth:`UNet2DS.fold` computes them), and the module assembled around
-    the tensors (``net.init``). The weights are bitwise those of the drawn,
-    loaded, moved (and folded) net."""
-    nfb = int(np.shape(params["enc0a_conv"]["kernel"])[-1])
-    up_mode = "transpose" if "up0_tconv" in params else "upsampling"
-    args = inspect.signature(UNet2DS).bind(nfb, up_mode, compute_dtype,
-                                            **kwargs)
-    args.apply_defaults()
-    attrs = dict(args.arguments, folded=fold)
-    del attrs["generator"]
-    layers = list(_layers(nfb, up_mode))
-    trees = {"params": params, "state": state}
-    flat = iter(B.upload_packed(
-        [(f"{name}.{leaf}", trees[tree][name][leaf], shape)
-         for name, kind, cin, cout in layers
-         for tree, leaf, shape in _jax_leaves(kind, cin, cout)],
-        "cpu" if device is None else device))
-    # Unfolded, each bias and BN tensor gets storage of its own: views of
-    # one buffer share its autograd version, so a training forward's
-    # in-place BN update would void what its backward saved.
-    own = (lambda x: x) if fold else torch.clone
-    t = {}
-    with span("net.load"):
-        for name, kind, _, _ in layers:
-            if kind == "bn":
-                t[name] = B.BNTensors(*(own(next(flat)) for _ in range(4)))
-            else:
-                t[name] = (next(flat).permute(3, 2, 0, 1).contiguous(),
-                           own(next(flat)))
-    if fold:
-        with span("net.fold"):
-            prev = None
-            for name, kind, _, _ in layers:
-                if kind == "bn":
-                    t[prev] = fold_bn(*t[prev], t.pop(name),
-                                      out_dim=1 if prev.endswith("_tconv")
-                                      else 0)
-                prev = name
-            w, b = t["head_conv"]
-            t["head_conv"] = (w[1:] - w[:1], b[1:] - b[:1])
-    with span("net.init"):
-        net = B.holding(UNet2DS, {}, **attrs)
-        for name, kind, _, _ in layers:
-            if name not in t:
-                continue
-            if kind == "bn":
-                bn = t[name]
-                layer = B.holding(
-                    B.BatchNorm, {"weight": bn.weight, "bias": bn.bias},
-                    {"running_mean": bn.running_mean,
-                     "running_var": bn.running_var},
-                    momentum=_momentum(name))
-            else:
-                w, b = t[name]
-                layer = B.holding(B.ConvTranspose2x2 if kind == "tconv"
-                                  else B.Conv2d, {"weight": w, "bias": b})
-            net.add_module(name, layer)
-    return net
-
-
-def from_jax_params(params, state, compute_dtype=None, device=None,
-                    **kwargs) -> UNet2DS:
-    """Build a ``UNet2DS`` from the JAX package's (params, state) dicts
-    (numpy or JAX arrays, or CPU tensors) on ``device`` (None: the CPU);
-    nfb and up_mode are read off the shapes. ``kwargs`` go where
-    ``UNet2DS`` takes them (``drp``, ``remat``). No weight is drawn: the
-    net is bitwise ``UNet2DS(...)`` with :func:`load_jax_params_` and
-    ``.to(device)``."""
-    return _build(params, state, compute_dtype, device, False, kwargs)
-
-
-def inference_net(params, state, compute_dtype=None, device=None,
-                  fold=True, **kwargs) -> UNet2DS:
-    """The eval-mode net of (params, state) on ``device``, folded
-    (bitwise ``from_jax_params(...).eval().fold()``) when ``fold``: no
-    unfolded net is built, nothing is drawn or deep-copied, and every
-    call reads the arrays it is given."""
-    return _build(params, state, compute_dtype, device, fold, kwargs).eval()
-
-
-def to_jax_params(model: UNet2DS):
-    """The inverse of :func:`from_jax_params`: (params, state) dicts of
-    float32 numpy arrays in the JAX package's layout (copies)."""
-    params = jax_tree(model)
-    state = {}
-    for name, kind, _ in layer_order(model.nfb, model.up_mode):
-        if kind == "bn":
-            bn = getattr(model, name)
-            state[name] = {"mean": bn.running_mean.detach().cpu().numpy().copy(),
-                           "var": bn.running_var.detach().cpu().numpy().copy()}
-    return params, state
-
-
-def param_count(model: UNet2DS) -> int:
-    """Weights of the net, as the JAX package counts its params leaves."""
-    return sum(p.numel() for p in model.parameters())
+from_jax_params = functools.partial(W.from_jax_params, UNet2DS)
+inference_net = functools.partial(W.inference_net, UNet2DS)
 
 
 def forward_flops(h: int, w: int, nfb: int = _F,

@@ -28,8 +28,9 @@ from math import ceil
 import numpy as np
 import torch
 
-from deepcalcium_torch.models.unet1d import (UNet1D, inference_net,
-                                             load_jax_params_, to_jax_params)
+from deepcalcium_torch.models.netweights import inference_route
+from deepcalcium_torch.models.unet1d import (UNet1D, load_jax_params_,
+                                             to_jax_params)
 from deepcalcium_torch.ops import losses as L
 from deepcalcium_torch.parallel.mesh import agree, check_mesh
 from deepcalcium_torch.train import trainer as T
@@ -464,9 +465,9 @@ class UNet1DSegmentation:
         run through the eval-mode net in slabs of ``batch``.
         ``model_path``: a ``.ckpt`` of either package or a Keras
         ``.hdf5``/``.h5``. The net is ``net_func``'s, with the weights
-        loaded; the stock ``UNet1D`` reads its width off the weights and is
-        built straight off them (:func:`unet1d.inference_net`: one packed
-        upload, nothing drawn).
+        loaded; the stock ``UNet1D`` (or a ``functools.partial`` of it)
+        reads its width off the weights and is built straight off them
+        (:func:`netweights.inference_route`).
         ``fast``: True, or "auto" when the built net is a ``UNet1D`` itself
         (not a subclass), runs ``UNet1D.fold()``, BN folded into the convs
         and the sigmoid head (exact up to float rounding), as the JAX
@@ -486,23 +487,10 @@ class UNet1DSegmentation:
                     ckpt = read_checkpoint(model_path)
                     params, state = ckpt["params"], ckpt["state"]
             with span("predict.build"):
-                if self.net_func is UNet1D:
-                    fold = fast is True or fast == "auto"
-                    net = inference_net(params, state, self.compute_dtype,
-                                        self.device, fold=fold,
-                                        margin=int(error_margin))
-                else:
-                    net = load_jax_params_(self.net_func(
-                        compute_dtype=self.compute_dtype,
-                        generator=torch.Generator().manual_seed(0),
-                        margin=int(error_margin)), params, state).to(
-                            self.device).eval()
-                    fold = fast is True or (fast == "auto"
-                                            and type(net) is UNet1D)
-                    if fold:
-                        with span("net.fold"):
-                            net = net.fold()
-                if fold:
+                net = inference_route(
+                    UNet1D, self.net_func, params, state, self.compute_dtype,
+                    self.device, fast, True, margin=int(error_margin))
+                if net.folded:
                     logging.getLogger(__name__).info(
                         "fast=%r: running the folded inference forward "
                         "(UNet1D.fold: BN folded into the convs, the sigmoid "

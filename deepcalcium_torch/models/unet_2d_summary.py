@@ -19,7 +19,6 @@ still train and predict from summaries passed through the injection points.
 """
 
 import copy
-import functools
 import logging
 import os
 import time
@@ -28,8 +27,9 @@ import numpy as np
 import torch
 
 from deepcalcium_torch.metrics.neurofinder import nf_mask_metrics
-from deepcalcium_torch.models.unet2d import (UNet2DS, inference_net,
-                                             load_jax_params_, to_jax_params)
+from deepcalcium_torch.models.netweights import inference_route
+from deepcalcium_torch.models.unet2d import (UNet2DS, load_jax_params_,
+                                             to_jax_params)
 from deepcalcium_torch.ops import losses as L
 from deepcalcium_torch.ops.mask_summary import (mask_summary_exact,
                                                 mask_summary_stencil)
@@ -182,36 +182,20 @@ class UNet2DSummary:
 
     def _inference_net(self, params, state, window_shape, fast):
         """The eval-mode net on ``self.device``, as the JAX package's
-        ``_resolve_apply_fn`` picks its forward. The stock net (``UNet2DS``
+        ``_resolve_apply_fn`` picks its forward
+        (:func:`netweights.inference_route`): the stock net (``UNet2DS``
         or a ``functools.partial`` of it) is built straight off the
-        weights, which give its width and up mode
-        (:func:`unet2d.inference_net`: one packed upload, nothing drawn);
-        any other ``net_func`` is built as ``fit`` builds it, and the
-        weights are loaded into it. ``fast=True`` folds BN into the convs
-        with the sigmoid head (``UNet2DS.fold``, exact up to float
-        rounding) whatever the net is; "auto" folds only a net whose type
-        is ``UNet2DS`` itself, with a transpose-mode checkpoint and a
-        window of multiples of 16; anything else runs the unfolded net."""
-        stock = self.net_func is UNet2DS or (
-            isinstance(self.net_func, functools.partial)
-            and self.net_func.func is UNet2DS)
-        auto = "up0_tconv" in params and all(s % 16 == 0
-                                             for s in window_shape)
-        if stock:
-            fold = fast is True or (fast == "auto" and auto)
-            net = inference_net(params, state, self.compute_dtype,
-                                self.device, fold=fold)
-        else:
-            net = load_jax_params_(self.net_func(
-                compute_dtype=self.compute_dtype,
-                generator=torch.Generator().manual_seed(0), remat=False),
-                params, state).to(self.device).eval()
-            fold = fast is True or (
-                fast == "auto" and type(net) is UNet2DS and auto)
-            if fold:
-                with span("net.fold"):
-                    net = net.fold()
-        if fold:
+        weights, any other ``net_func`` as ``fit`` builds it.
+        ``fast=True`` folds BN into the convs with the sigmoid head
+        (``UNet2DS.fold``, exact up to float rounding) whatever the net
+        is; "auto" folds only a net whose type is ``UNet2DS`` itself, with
+        a transpose-mode checkpoint and a window of multiples of 16;
+        anything else runs the unfolded net."""
+        net = inference_route(
+            UNet2DS, self.net_func, params, state, self.compute_dtype,
+            self.device, fast, "up0_tconv" in params and all(
+                s % 16 == 0 for s in window_shape), remat=False)
+        if net.folded:
             logging.getLogger(__name__).info(
                 "fast=%r: running the folded inference forward (UNet2DS.fold: "
                 "BN folded into the convs, the sigmoid head)", fast)

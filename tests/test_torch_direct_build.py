@@ -16,7 +16,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from deepcalcium_torch.models import blocks, unet1d, unet2d
+from deepcalcium_torch.models import blocks, netweights, unet1d, unet2d
+from deepcalcium_torch.models.movie_segmentation import segment_movie
 from deepcalcium_torch.models.unet_1d_segmentation import UNet1DSegmentation
 from deepcalcium_torch.models.unet_2d_summary import UNet2DSummary
 from deepcalcium_torch.train.checkpoints import save_checkpoint
@@ -169,10 +170,10 @@ def test_staging_buffer_is_reused_and_overwritten():
     packed after it is still bitwise its own."""
     big = _net2d(nfb=8, seed=5)
     unet2d.inference_net(*big)
-    stage = blocks._staging[False]
+    stage = netweights._staging[False]
     params, state = _net2d(seed=6)
     new = unet2d.inference_net(params, state, fold=True)
-    assert blocks._staging[False] is stage
+    assert netweights._staging[False] is stage
     old = unet2d.load_jax_params_(unet2d.UNet2DS(4), params,
                                   state).eval().fold()
     _assert_same_net(new, old)
@@ -297,7 +298,7 @@ def test_evaluate_movie_takes_the_direct_route_for_the_stock_net(
 
 
 @pytest.mark.parametrize("fast", ["auto", True, False])
-@pytest.mark.parametrize("kind", ["stock", "subclass"])
+@pytest.mark.parametrize("kind", ["stock", "partial", "subclass"])
 def test_spike_predict_takes_the_direct_route_for_the_stock_net(
         tmp_path, kind, fast):
     params, state = _net1d()
@@ -305,8 +306,9 @@ def test_spike_predict_takes_the_direct_route_for_the_stock_net(
     save_checkpoint(ckpt, params, state)
     traces = {"a": np.random.default_rng(0).normal(size=(3, 80)).astype(
         np.float32)}
-    net_func = (unet1d.UNet1D if kind == "stock"
-                else functools.partial(_Sub1D, nfb=4))
+    net_func = {"stock": unet1d.UNet1D,
+                "partial": functools.partial(unet1d.UNet1D, drp=0.0),
+                "subclass": functools.partial(_Sub1D, nfb=4)}[kind]
     model = UNet1DSegmentation(
         cpdir=str(tmp_path), device="cpu", net_func=net_func,
         dataset_attrs_func=lambda n: {"name": n},
@@ -318,7 +320,7 @@ def test_spike_predict_takes_the_direct_route_for_the_stock_net(
         for _ in range(2)))
     names = [s.name for s in spans]
     assert names.count("predict.build") == 2
-    folds = 2 if fast is True or (fast == "auto" and kind == "stock") else 0
+    folds = 2 if fast is True or (fast == "auto" and kind != "subclass") else 0
     assert names.count("net.fold") == folds
     if kind == "subclass":
         assert "net.pack" not in names
@@ -331,6 +333,35 @@ def test_spike_predict_takes_the_direct_route_for_the_stock_net(
     old = unet1d.load_jax_params_(unet1d.UNet1D(4), params, state).eval()
     with torch.no_grad():
         prob = (old.fold() if folds else old)(torch.from_numpy(traces["a"]))
+    sure = (prob - 0.5).abs().numpy() > 1e-4
+    for got in out:
+        np.testing.assert_array_equal(got[sure], (prob.numpy() > 0.5)[sure])
+
+
+@pytest.mark.parametrize("up_mode", ["transpose", "upsampling"])
+def test_segment_movie_takes_the_direct_route(up_mode):
+    """``segment_movie`` builds the stock net through the same route: one
+    ``net.pack`` a call, folded exactly for a transpose-mode checkpoint,
+    and its masks those of the drawn net's per-frame forward."""
+    params, state = _net2d(up_mode)
+    movie = np.random.default_rng(0).integers(0, 900, (3, 32, 32)).astype(
+        np.int16)
+    out = []
+    spans, _ = _spans_of(lambda: out.extend(segment_movie(
+        params, state, movie, slab=2, compute_dtype=None, device="cpu")
+        for _ in range(2)))
+    names = [s.name for s in spans]
+    for name in ("net.pack", "net.upload", "net.load", "net.init"):
+        assert names.count(name) == 2, name
+    assert names.count("net.fold") == (2 if up_mode == "transpose" else 0)
+    old = unet2d.load_jax_params_(unet2d.UNet2DS(4, up_mode), params,
+                                  state).eval()
+    old = old.fold() if up_mode == "transpose" else old
+    x = torch.from_numpy(movie.astype(np.float32))
+    x = (x - x.mean(dim=(1, 2), keepdim=True)) / (
+        x.std(dim=(1, 2), correction=0, keepdim=True) + 1e-6)
+    with torch.no_grad():
+        prob = old(x)
     sure = (prob - 0.5).abs().numpy() > 1e-4
     for got in out:
         np.testing.assert_array_equal(got[sure], (prob.numpy() > 0.5)[sure])
