@@ -60,7 +60,11 @@ Phases, one line each, in order:
     on separated neurons; then Cellpose's two flow kernels
     (``ops/flows.py``: 200 Euler steps of ~28,000 pixels on a 512x512
     field, the diffusion of ~160 masks) bit for bit their plain steps on
-    the card, each timed beside its bound and the plain steps' time;
+    the card, each timed beside its bound and the plain steps' time; then
+    Cellpose-SAM's attention kernel (``ops/attention.py``) at the cell's
+    shapes against the float32 attention with the bias built whole, timed
+    beside its bound, the plain version and cuDNN's flash call alone
+    (``phase_attention``);
 19. the command line, ``deepcalcium_torch.cli.main([...])`` with no
     ``--device``: ``evaluate-movie``, ``segment``, ``parity-golden``,
     ``predict``, ``spikes-train --arch glm``, ``spikes-predict --arch glm``
@@ -2334,6 +2338,100 @@ def phase_flows(dev, seed, card):
     return numbers
 
 
+def _explicit_attention(qkv, th, tw, grid, heads):
+    """float32 ``softmax(q k^T / sqrt(d) + B) v`` with B built whole from
+    the tables (``ops/attention.py``'s formula), (B, N, heads d)."""
+    import torch
+
+    from deepcalcium_torch.ops import attention as att
+
+    b, n, c3 = qkv.shape
+    d = c3 // (3 * heads)
+    gh, gw = grid
+    q, k, v = qkv.float().view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    rel_h, rel_w = att.rel_pos_terms(
+        q.reshape(b, heads, gh, gw, d), att.rel_pos_index(th.float(), gh),
+        att.rel_pos_index(tw.float(), gw))
+    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(b, heads, n, n)
+    p = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5 + bias, -1)
+    return (p @ v).transpose(1, 2).reshape(b, n, heads * d)
+
+
+def phase_attention(dev, seed, card):
+    """Cellpose-SAM's attention kernel (``ops/attention.py``) at the cell's
+    shapes: a block's qkv of 9 tiles in batches of 8 and 1, a 32 x 32 grid,
+    16 heads of 64, bf16, tables N(0, 0.2). Each batch's kernel against
+    the float32 attention with the bias built whole, no farther from it
+    than 1.25 times the plain version (the padded route, which rounds the
+    bias to bf16); then the kernel timed alone beside its FLOP bound, the
+    plain version from qkv to the projection's layout (``attention`` on
+    the card: split, bias terms, cats and pads, cuDNN's flash at head dim
+    128, slice and transpose), and that flash call alone as the library's
+    yardstick (``library_ms``; the port never calls it on a card)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepcalcium_torch.ops import attention as att
+
+    grid, heads, d = (32, 32), 16, 64
+    n = grid[0] * grid[1]
+    numbers = {"grid": list(grid), "heads": heads, "head_dim": d,
+               "by_batch": {}}
+    for b in (8, 1):
+        gen = torch.Generator(device=dev).manual_seed(seed + b)
+        qkv = torch.randn((b, n, 3 * heads * d), generator=gen,
+                          device=dev).bfloat16()
+        th, tw = (torch.randn((2 * g - 1, d), generator=gen, device=dev)
+                  .mul(0.2).bfloat16() for g in grid)
+        want = _explicit_attention(qkv, th, tw, grid, heads)
+        got = att.attention_qkv_cuda(qkv, th, tw, grid, heads)
+
+        def plain():
+            q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+            return att.attention(q, k, v, att.rel_pos_index(th, grid[0]),
+                                 att.rel_pos_index(tw, grid[1]), grid
+                                 ).transpose(1, 2).reshape(b, n, heads * d)
+
+        err = float((got.float() - want).abs().max())
+        plain_err = float((plain().float() - want).abs().max())
+        if not err <= 1.25 * plain_err:
+            raise AssertionError(f"the attention kernel at batch {b} is "
+                                 f"{err} from the float32 attention, the "
+                                 f"plain version {plain_err}")
+        q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = att.rel_pos_terms(
+            q.reshape(b, heads, grid[0], grid[1], d),
+            att.rel_pos_index(th, grid[0]), att.rel_pos_index(tw, grid[1]))
+        qa = torch.cat([q * d ** -0.5, rel_h, rel_w], -1)
+        ka = torch.cat([k, att._one_hot_keys(grid, k).expand(
+            b, heads, n, sum(grid))], -1)
+        va = F.pad(v, (0, sum(grid)))
+        flops = 4 * b * heads * n * n * d + 2 * b * heads * n * sum(grid) * d
+
+        def kernel():
+            return att.attention_qkv_cuda(qkv, th, tw, grid, heads)
+
+        numbers["by_batch"][b] = {
+            "max_abs_err": err, "plain_max_abs_err": plain_err,
+            "ms": timed_ms(kernel, 50),
+            "kernel_ms": sum(ms for name, ms, _ in kernel_table(kernel, 10)
+                             if "attention_bf16_kernel" in name),
+            "bound_ms": flops / BF16_FLOPS_PER_S * 1e3, "bound_by": "flops",
+            "plain_ms": timed_ms(plain, 20),
+            "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+                qa, ka, va, scale=1.0), 20)}
+    by = numbers["by_batch"]
+    print(f"attention kernel, 32x32 grid, 16 heads of 64, bf16: batch 8 "
+          f"{by[8]['kernel_ms']:.4f} ms (bound {by[8]['bound_ms']:.4f}, "
+          f"plain {by[8]['plain_ms']:.3f}, flash alone "
+          f"{by[8]['library_ms']:.4f}; error {by[8]['max_abs_err']:.4g} "
+          f"against the plain version's {by[8]['plain_max_abs_err']:.4g}), "
+          f"batch 1 {by[1]['kernel_ms']:.4f} ms (bound "
+          f"{by[1]['bound_ms']:.4f}, plain {by[1]['plain_ms']:.3f}, flash "
+          f"alone {by[1]['library_ms']:.4f}); {card}", flush=True)
+    return numbers
+
+
 class _HostMovie:
     """An in-memory stand-in for an open HDF5 dataset: a shape, a dtype and
     slicing, so that a command takes the path it takes for a file."""
@@ -3200,6 +3298,7 @@ def main(argv=None):
     segment = timed("segment", phase_segment, dev, main_ctx, card)
     stencil = timed("stencil", phase_stencil, dev, args.seed, card)
     flow_kernels = timed("flows", phase_flows, dev, args.seed, card)
+    attention = timed("attention", phase_attention, dev, args.seed, card)
     cli_launches, cli = timed("cli", phase_cli, dev, main_ctx, fit1d_ctx, card)
     par_launches, parallel = timed("parallel", phase_parallel, dev, main_ctx,
                                    card, args.seed)
@@ -3238,7 +3337,10 @@ def main(argv=None):
         "fold_bound_ms": fold["bound_ms"], "fold_shape": fold["shape"]}, {
         "name": "Euler steps euler_steps_cuda, diffusion diffuse_cuda",
         "route": "cuda", "source": "deepcalcium_torch/csrc/flows.cu",
-        "replaces": None, **flow_kernels}],
+        "replaces": None, **flow_kernels}, {
+        "name": "Cellpose-SAM attention attention_qkv_cuda",
+        "route": "cuda", "source": "deepcalcium_torch/csrc/attention.cu",
+        "replaces": None, **attention}],
         "evaluate_ms": eval_ms, "train_golden_max_abs_err": golden_errs,
         "fit": fit, "stream": stream, "tiled": tiled, "predict": predict,
         "golden1d_max_abs_err": golden1d_err,

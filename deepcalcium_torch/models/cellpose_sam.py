@@ -35,8 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from deepcalcium_torch.models.netweights import upload_packed
-from deepcalcium_torch.ops.attention import (attention, rel_pos_index,
-                                             resample_rel_pos)
+from deepcalcium_torch.ops.attention import attention_qkv, resample_rel_pos
 from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["Config", "CellposeSAM", "leaf_shapes", "check_state_dict",
@@ -179,11 +178,9 @@ class CellposeSAM:
         x = (x.permute(0, 2, 3, 1) + t["pos"]).reshape(b, g * g, w)
         for blk in t["blocks"]:
             h = F.layer_norm(x, (w,), blk["n1.w"], blk["n1.b"], eps)
-            qkv = F.linear(h, blk["qkv.w"], blk["qkv.b"]).view(
-                b, g * g, 3, cfg.heads, cfg.head_dim).permute(2, 0, 3, 1, 4)
-            a = attention(qkv[0], qkv[1], qkv[2], blk["rh"], blk["rw"], (g, g))
-            x = x + F.linear(a.transpose(1, 2).reshape(b, g * g, w),
-                             blk["proj.w"], blk["proj.b"])
+            a = attention_qkv(F.linear(h, blk["qkv.w"], blk["qkv.b"]),
+                              blk["rh"], blk["rw"], (g, g), cfg.heads)
+            x = x + F.linear(a, blk["proj.w"], blk["proj.b"])
             h = F.layer_norm(x, (w,), blk["n2.w"], blk["n2.b"], eps)
             x = x + F.linear(F.gelu(F.linear(h, blk["lin1.w"], blk["lin1.b"])),
                              blk["lin2.w"], blk["lin2.b"])
@@ -206,7 +203,7 @@ def inference_net(state_dict, cfg: Config = Config(),
     """The net of a published-layout state dict (tensors or arrays) on
     ``device``: every weight packed into one buffer and copied at once
     (:func:`netweights.upload_packed`: ``net.pack``, ``net.upload``), the
-    tables re-sampled and indexed and the compute-dtype copies made there
+    tables re-sampled and the compute-dtype copies made there
     (``net.load``), the net assembled round them (``net.init``)."""
     check_state_dict(state_dict, cfg)
     shapes = leaf_shapes(cfg)
@@ -220,9 +217,9 @@ def inference_net(state_dict, cfg: Config = Config(),
         blocks = []
         for i in range(cfg.depth):
             p = f"encoder.blocks.{i}."
-            rh, rw = (rel_pos_index(resample_rel_pos(
-                weights[p + f"attn.rel_pos_{a}"], cfg.grid), cfg.grid).to(dt)
-                for a in "hw")
+            rh, rw = (resample_rel_pos(weights[p + f"attn.rel_pos_{a}"],
+                                       cfg.grid).to(dt).contiguous()
+                      for a in "hw")
             blocks.append({
                 "n1.w": cast[p + "norm1.weight"],
                 "n1.b": cast[p + "norm1.bias"],

@@ -18,6 +18,7 @@ import torch
 
 from deepcalcium_torch.models import cellpose_sam
 from deepcalcium_torch.ops import flows
+from deepcalcium_torch.ops.attention import attention_qkv_cuda
 from deepcalcium_torch.ops.summary import movie_summary_fast
 from deepcalcium_torch.train.evaluate import _streaming_mean
 from deepcalcium_torch.utils.device import require_cuda
@@ -95,15 +96,20 @@ class CellposeSummary:
                 params, self.config, compute_dtype, self.device)
         self._taper = torch.from_numpy(taper(self.config.tile)).to(
             self.device)
-        self._graphs = {}   # batch size -> (graph, its input, its output)
+        # batch size -> (graph, its input, its output, attention launches)
+        self._graphs = {}
 
     def _forward(self, x):
         """The net on a batch of tiles. On a card, each batch size runs as
         one CUDA graph, captured at its first call (a call before the
-        capture warms the kernels' plans on a side stream) and replayed
-        after: a tile's forward launches some 400 kernels, whose host time
-        would exceed the card's at a batch of one."""
+        capture warms the kernels' plans and builds or loads the kernel
+        library on a side stream) and replayed after: a tile's forward launches
+        some 400 kernels, whose host time would exceed the card's at a
+        batch of one. Each forward counts the attention kernel's launches
+        it ran (``cellpose.attn_launches``): those its graph's capture
+        recorded, none on the CPU."""
         if self.device.type != "cuda":
+            count("cellpose.attn_launches", 0)
             return self.net(x)
         held = self._graphs.get(x.shape[0])
         if held is None:
@@ -114,12 +120,15 @@ class CellposeSummary:
                 self.net(x_in)
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
+            launched = attention_qkv_cuda.launches
             with torch.cuda.graph(graph):
                 y_out = self.net(x_in)
-            held = self._graphs[x.shape[0]] = (graph, x_in, y_out)
-        graph, x_in, y_out = held
+            held = self._graphs[x.shape[0]] = (
+                graph, x_in, y_out, attention_qkv_cuda.launches - launched)
+        graph, x_in, y_out, launches = held
         x_in.copy_(x)
         graph.replay()
+        count("cellpose.attn_launches", launches)
         return y_out
 
     def _flows(self, img, tile_overlap, batch_size):

@@ -17,7 +17,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_library"]
+__all__ = ["load_library", "build_library", "raise_on"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -80,6 +80,16 @@ def load_library() -> ctypes.CDLL:
     lib.dc_euler_steps.restype = ctypes.c_int
     lib.dc_diffuse.argtypes = [p, p, p, i, i, i, p, p, p]
     lib.dc_diffuse.restype = ctypes.c_int
+    lib.dc_rel_pos_attention.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                         ctypes.c_float, p]
+    lib.dc_rel_pos_attention.restype = ctypes.c_int
     lib.dc_error_string.argtypes = [ctypes.c_int]
     lib.dc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def raise_on(err: int, what: str):
+    """Raise if a launch returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                           f"({load_library().dc_error_string(err).decode()})")

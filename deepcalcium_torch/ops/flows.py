@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from scipy import ndimage
 
+from deepcalcium_torch.ops._build import load_library, raise_on
 from deepcalcium_torch.utils.profiling import count, span
 
 __all__ = ["follow_flows", "euler_field", "euler_steps", "euler_steps_cuda",
@@ -79,14 +80,6 @@ def _check_cuda(name, tensors, dtypes):
     for t, dtype in zip(tensors, dtypes):
         if t.dtype != dtype:
             raise TypeError(f"{name} takes {dtype}, got {t.dtype}")
-
-
-def _raise_on(err, what):
-    if err:
-        from deepcalcium_torch.ops._build import load_library
-
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
-                           f"({load_library().dc_error_string(err).decode()})")
 
 
 def euler_field(dP: torch.Tensor) -> torch.Tensor:
@@ -131,8 +124,6 @@ def euler_steps_cuda(im: torch.Tensor, inds: torch.Tensor,
     out = torch.empty((n, 2), dtype=torch.int64, device=inds.device)
     if n == 0:
         return out
-    from deepcalcium_torch.ops._build import load_library
-
     lib = load_library()
     with torch.cuda.device(inds.device):
         err = lib.dc_euler_steps(
@@ -140,7 +131,7 @@ def euler_steps_cuda(im: torch.Tensor, inds: torch.Tensor,
             ctypes.c_void_p(inds.data_ptr()), n, int(niter),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _raise_on(err, "Euler kernel")
+    raise_on(err, "Euler kernel")
     euler_steps_cuda.launches += 1
     return out
 
@@ -332,8 +323,6 @@ def diffuse_cuda(d: Diffusion) -> torch.Tensor:
     ends = ends.int()
     out = torch.empty(npix, dtype=torch.float64, device=dev)
     scratch = torch.empty(2 * npix, dtype=torch.float64, device=dev)
-    from deepcalcium_torch.ops._build import load_library
-
     lib = load_library()
     with torch.cuda.device(dev):
         err = lib.dc_diffuse(
@@ -342,7 +331,7 @@ def diffuse_cuda(d: Diffusion) -> torch.Tensor:
             int(d.steps), ctypes.c_void_p(scratch.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _raise_on(err, "diffusion kernel")
+    raise_on(err, "diffusion kernel")
     diffuse_cuda.launches += 1
     return out[pos]
 

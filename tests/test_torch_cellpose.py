@@ -127,6 +127,70 @@ def test_attention_matches_an_explicit_bias():
                                want, rtol=1e-5, atol=1e-5)
 
 
+def _qkv_inputs(b, grid, heads, d, dtype, device="cpu", seed=0):
+    """A (B, N, 3 heads d) qkv of N(0, 1) entries and re-sampled tables
+    (2 gh - 1, d), (2 gw - 1, d) of N(0, 0.2), as the cell draws them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    gh, gw = grid
+    qkv = torch.randn((b, gh * gw, 3 * heads * d), generator=g, device=device)
+    th = torch.randn((2 * gh - 1, d), generator=g, device=device) * 0.2
+    tw = torch.randn((2 * gw - 1, d), generator=g, device=device) * 0.2
+    return qkv.to(dtype), th.to(dtype), tw.to(dtype)
+
+
+def _split_attention(qkv, th, tw, grid, heads):
+    """The plain :func:`attention` of qkv split into heads, as the net
+    called it before :func:`attention_qkv`: (B, N, heads d)."""
+    b, n, c3 = qkv.shape
+    d = c3 // (3 * heads)
+    q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    out = att.attention(q, k, v, att.rel_pos_index(th, grid[0]),
+                        att.rel_pos_index(tw, grid[1]), grid)
+    return out.transpose(1, 2).reshape(b, n, heads * d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", [(3, 4), (8, 8)])
+def test_attention_qkv_is_the_plain_attention_on_the_cpu(dtype, grid):
+    """On CPU tensors :func:`attention_qkv` is bit for bit the plain
+    attention of the split heads, in the layout the output projection
+    reads, and launches no kernel."""
+    qkv, th, tw = _qkv_inputs(2, grid, 3, 16, dtype)
+    n0 = att.attention_qkv_cuda.launches
+    got = att.attention_qkv(qkv, th, tw, grid, 3)
+    assert got.shape == (2, grid[0] * grid[1], 48) and got.dtype == dtype
+    assert got.is_contiguous()
+    assert torch.equal(got, _split_attention(qkv, th, tw, grid, 3))
+    assert att.attention_qkv_cuda.launches == n0 == 0
+
+
+def test_attention_kernel_refuses_cpu_tensors():
+    """The kernel's wrapper raises on CPU tensors before any launch, and
+    :func:`attention_qkv` on neither a card nor the CPU."""
+    qkv, th, tw = _qkv_inputs(1, (4, 4), 2, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        att.attention_qkv_cuda(qkv, th, tw, (4, 4), 2)
+    with pytest.raises(ValueError, match="runs on a CUDA card or the CPU"):
+        att.attention_qkv(qkv.to("meta"), th.to("meta"), tw.to("meta"),
+                          (4, 4), 2)
+    assert att.attention_qkv_cuda.launches == 0
+
+
+def test_cpu_call_counts_no_attention_launch():
+    """On the CPU every forward records ``cellpose.attn_launches`` 0: the
+    plain attention ran."""
+    import time
+
+    model = CellposeSummary(params=_weights(), config=SMALL, device="cpu")
+    movie, _ = _movie(seed=2)
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        model.evaluate_movie(movie)
+    got = [c.value for c in profiling.counted(t0, time.time_ns())
+           if c.name == "cellpose.attn_launches"]
+    assert got == [0.0, 0.0]    # the batches of 8 and 1 tiles
+
+
 def test_readout_pixel_shuffle_is_the_conv_transpose():
     """Cellpose-SAM's ``conv_transpose2d(x, eye(192).reshape(192, 3, 8,
     8), stride 8)`` is ``pixel_shuffle(x, 8)``, bit for bit."""
@@ -673,3 +737,124 @@ def test_card_dynamics_take_one_launch_a_loop(card):
     counts = {c.name: c.value for c in profiling.counted(t0, time.time_ns())}
     assert counts["cellpose.qc_iters"] > 0
     assert counts["cellpose.loop_launches"] == 2
+
+
+def _explicit_attention(qkv, th, tw, grid, heads):
+    """float32 ``softmax(q k^T / sqrt(d) + B) v`` with B built whole from
+    the tables, on ``qkv``'s own values: (B, N, heads d)."""
+    b, n, c3 = qkv.shape
+    d = c3 // (3 * heads)
+    gh, gw = grid
+    q, k, v = qkv.float().view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    rel_h, rel_w = att.rel_pos_terms(
+        q.reshape(b, heads, gh, gw, d), att.rel_pos_index(th.float(), gh),
+        att.rel_pos_index(tw.float(), gw))
+    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(b, heads, n, n)
+    p = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5 + bias, -1)
+    return (p @ v).transpose(1, 2).reshape(b, n, heads * d)
+
+
+# (batch, grid, heads, head dim, dtype): the cell's blocks at batches 8
+# and 1; SMALL's; ragged grids whose last query and key tiles are masked,
+# a head dim that is no power of two, the largest grid and head dim; the
+# float32 the command line runs by default.
+KERNEL_CASES = {
+    "cell_b8": (8, (32, 32), 16, 64, torch.bfloat16),
+    "cell_b1": (1, (32, 32), 16, 64, torch.bfloat16),
+    "small": (3, (8, 8), 4, 16, torch.bfloat16),
+    "ragged_5x5": (2, (5, 5), 2, 32, torch.bfloat16),
+    "ragged_12x12_d48": (2, (12, 12), 3, 48, torch.bfloat16),
+    "wide_6x10": (2, (6, 10), 2, 64, torch.bfloat16),
+    "largest_64x64_d128": (1, (64, 64), 2, 128, torch.bfloat16),
+    "float32_5x7": (2, (5, 7), 2, 32, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_attention_kernel_matches_an_explicit_bias_on_card(card, case):
+    """The kernel against the float32 attention with B built whole, on the
+    same (bf16) inputs: its largest error is at most 1.25 times that of
+    the padded route (the plain :func:`attention` on the card, cuDNN's
+    flash at head dim d + gh + gw). Both round the probabilities to the
+    operands' dtype before PV and the output at the end; the padded route
+    also rounds both bias terms to bf16 where the kernel keeps them
+    float32, so the kernel's error is the smaller (0.33-0.79 of the padded
+    route's on the card over these cases); 1.25 leaves room for
+    the order of the online softmax's sums. One launch, a contiguous (B,
+    N, heads d)."""
+    b, grid, heads, d, dtype = KERNEL_CASES[case]
+    qkv, th, tw = _qkv_inputs(b, grid, heads, d, dtype, "cuda", seed=5)
+    want = _explicit_attention(qkv, th, tw, grid, heads)
+    n0 = att.attention_qkv_cuda.launches
+    got = att.attention_qkv(qkv, th, tw, grid, heads)
+    assert att.attention_qkv_cuda.launches - n0 == 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.is_contiguous()
+    err = (got.float() - want).abs().max()
+    padded = (_split_attention(qkv, th, tw, grid, heads).float()
+              - want).abs().max()
+    assert err <= 1.25 * padded, (float(err), float(padded))
+    # The bias is in: without it the answer is far off.
+    nobias = _explicit_attention(qkv, th * 0, tw * 0, grid, heads)
+    assert (nobias - want).abs().max() > 20 * err
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_what_it_does_not_take(card):
+    """A dtype other than bfloat16 and float32, tensors of two dtypes or
+    devices, a non-contiguous or misaligned qkv, a head dim that is no
+    multiple of 16 or over 128, a token count that is not the grid's, a
+    grid over 64 and tables of the wrong length raise before any launch."""
+    qkv, th, tw = _qkv_inputs(2, (4, 4), 2, 32, torch.bfloat16, "cuda")
+    n0 = att.attention_qkv_cuda.launches
+    run = att.attention_qkv_cuda
+    with pytest.raises(TypeError):
+        run(qkv.half(), th.half(), tw.half(), (4, 4), 2)
+    with pytest.raises(TypeError):
+        run(qkv, th.float(), tw, (4, 4), 2)
+    with pytest.raises(ValueError, match="one device"):
+        run(qkv, th.cpu(), tw, (4, 4), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        run(qkv.transpose(0, 1).contiguous().transpose(0, 1), th, tw,
+            (4, 4), 2)
+    shifted = torch.empty(qkv.numel() + 4, dtype=qkv.dtype,
+                          device="cuda")[4:].view(qkv.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        run(shifted, th, tw, (4, 4), 2)
+    bad_d, _, _ = _qkv_inputs(2, (4, 4), 2, 24, torch.bfloat16, "cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        run(bad_d, th[:, :24].contiguous(), tw[:, :24].contiguous(),
+            (4, 4), 2)
+    wide, _, _ = _qkv_inputs(1, (4, 4), 1, 256, torch.bfloat16, "cuda")
+    with pytest.raises(ValueError, match="up to 128"):
+        run(wide, th, tw, (4, 4), 1)
+    with pytest.raises(ValueError, match="N = gh gw"):
+        run(qkv, th, tw, (4, 3), 2)
+    big, bth, btw = _qkv_inputs(1, (1, 65), 1, 16, torch.bfloat16, "cuda")
+    with pytest.raises(ValueError, match="up to 64 x 64"):
+        run(big, bth, btw, (1, 65), 1)
+    with pytest.raises(ValueError, match="takes rh"):
+        run(qkv, th[:-1].contiguous(), tw, (4, 4), 2)
+    with pytest.raises(ValueError, match="takes qkv"):
+        run(qkv[0], th, tw, (4, 4), 2)
+    assert att.attention_qkv_cuda.launches == n0
+
+
+@pytest.mark.cuda
+def test_card_call_counts_attention_launches(card):
+    """A call on the card records ``cellpose.attn_launches`` 2 x depth: the
+    replayed graphs of the batches of 8 and 1 tiles hold one kernel launch
+    a block each."""
+    import time
+
+    model = CellposeSummary(params=_weights(), config=SMALL, device="cuda")
+    movie, _ = _movie(seed=2)
+    model.evaluate_movie(movie.cuda())      # captures both graphs
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        model.evaluate_movie(movie.cuda())
+    got = [c.value for c in profiling.counted(t0, time.time_ns())
+           if c.name == "cellpose.attn_launches"]
+    assert got == [CFG.depth, CFG.depth]
+    assert sum(got) == 2 * CFG.depth

@@ -51,6 +51,8 @@ def test_port_and_chip_smoke_never_import_jax():
         "import deepcalcium_torch.models.unet_1d_segmentation\n"
         "import deepcalcium_torch.models.glm_spikes\n"
         "import deepcalcium_torch.models.c2s_segmentation\n"
+        "import deepcalcium_torch.models.cellpose_summary\n"
+        "import deepcalcium_torch.ops.attention\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu'))\n"
