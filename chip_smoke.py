@@ -61,9 +61,10 @@ Phases, one line each, in order:
     (``ops/flows.py``: 200 Euler steps of ~28,000 pixels on a 512x512
     field, the diffusion of ~160 masks) bit for bit their plain steps on
     the card, each timed beside its bound and the plain steps' time; then
-    Cellpose-SAM's attention kernel (``ops/attention.py``) at the cell's
-    shapes against the float32 attention with the bias built whole, timed
-    beside its bound, the plain version and cuDNN's flash call alone
+    the relative-position attention kernel (``ops/attention.py``) at the
+    shapes of Cellpose-SAM's and Segment Anything's cells against the
+    float32 attention with the bias built whole, timed beside its bound,
+    the plain version and the SDPA call alone
     (``phase_attention``);
 19. the command line, ``deepcalcium_torch.cli.main([...])`` with no
     ``--device``: ``evaluate-movie``, ``segment``, ``parity-golden``,
@@ -2357,28 +2358,37 @@ def _explicit_attention(qkv, th, tw, grid, heads):
     return (p @ v).transpose(1, 2).reshape(b, n, heads * d)
 
 
+# The attention kernel's shapes on the main path: (batch, grid, heads, head
+# dim). Cellpose-SAM's cell runs a block's 9 tiles in batches of 8 and 1;
+# Segment Anything ViT-H's runs a window block's 25 windows of 14 x 14 and a
+# global block's 64 x 64 grid, at head dim 80 (the kernel's D = 128 route).
+ATTENTION_SHAPES = {"cellpose_b8": (8, (32, 32), 16, 64),
+                    "cellpose_b1": (1, (32, 32), 16, 64),
+                    "sam_windows_b25": (25, (14, 14), 16, 80),
+                    "sam_global_b1": (1, (64, 64), 16, 80)}
+
+
 def phase_attention(dev, seed, card):
-    """Cellpose-SAM's attention kernel (``ops/attention.py``) at the cell's
-    shapes: a block's qkv of 9 tiles in batches of 8 and 1, a 32 x 32 grid,
-    16 heads of 64, bf16, tables N(0, 0.2). Each batch's kernel against
-    the float32 attention with the bias built whole, no farther from it
-    than 1.25 times the plain version (the padded route, which rounds the
-    bias to bf16); then the kernel timed alone beside its FLOP bound, the
-    plain version from qkv to the projection's layout (``attention`` on
-    the card: split, bias terms, cats and pads, cuDNN's flash at head dim
-    128, slice and transpose), and that flash call alone as the library's
-    yardstick (``library_ms``; the port never calls it on a card)."""
+    """The relative-position attention kernel (``ops/attention.py``) at
+    each shape of ``ATTENTION_SHAPES``, bf16, tables N(0, 0.2): the kernel
+    against the float32 attention with the bias built whole, no farther
+    from it than 1.25 times the plain version (the padded route, which
+    rounds the bias to bf16); then the kernel timed alone beside its FLOP
+    bound, the plain version from qkv to the projection's layout
+    (``attention`` on the card: split, bias terms, cats and pads, SDPA at
+    head dim d + gh + gw, slice and transpose), and that SDPA call alone
+    as the library's yardstick (``library_ms``; the port never calls it on
+    a card)."""
     import torch
     import torch.nn.functional as F
 
     from deepcalcium_torch.ops import attention as att
 
-    grid, heads, d = (32, 32), 16, 64
-    n = grid[0] * grid[1]
-    numbers = {"grid": list(grid), "heads": heads, "head_dim": d,
-               "by_batch": {}}
-    for b in (8, 1):
-        gen = torch.Generator(device=dev).manual_seed(seed + b)
+    numbers = {"by_shape": {}}
+    for i, (label, (b, grid, heads, d)) in enumerate(
+            ATTENTION_SHAPES.items()):
+        n = grid[0] * grid[1]
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
         qkv = torch.randn((b, n, 3 * heads * d), generator=gen,
                           device=dev).bfloat16()
         th, tw = (torch.randn((2 * g - 1, d), generator=gen, device=dev)
@@ -2395,7 +2405,7 @@ def phase_attention(dev, seed, card):
         err = float((got.float() - want).abs().max())
         plain_err = float((plain().float() - want).abs().max())
         if not err <= 1.25 * plain_err:
-            raise AssertionError(f"the attention kernel at batch {b} is "
+            raise AssertionError(f"the attention kernel at {label} is "
                                  f"{err} from the float32 attention, the "
                                  f"plain version {plain_err}")
         q, k, v = qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
@@ -2411,7 +2421,8 @@ def phase_attention(dev, seed, card):
         def kernel():
             return att.attention_qkv_cuda(qkv, th, tw, grid, heads)
 
-        numbers["by_batch"][b] = {
+        numbers["by_shape"][label] = {
+            "batch": b, "grid": list(grid), "heads": heads, "head_dim": d,
             "max_abs_err": err, "plain_max_abs_err": plain_err,
             "ms": timed_ms(kernel, 50),
             "kernel_ms": sum(ms for name, ms, _ in kernel_table(kernel, 10)
@@ -2420,15 +2431,14 @@ def phase_attention(dev, seed, card):
             "plain_ms": timed_ms(plain, 20),
             "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
                 qa, ka, va, scale=1.0), 20)}
-    by = numbers["by_batch"]
-    print(f"attention kernel, 32x32 grid, 16 heads of 64, bf16: batch 8 "
-          f"{by[8]['kernel_ms']:.4f} ms (bound {by[8]['bound_ms']:.4f}, "
-          f"plain {by[8]['plain_ms']:.3f}, flash alone "
-          f"{by[8]['library_ms']:.4f}; error {by[8]['max_abs_err']:.4g} "
-          f"against the plain version's {by[8]['plain_max_abs_err']:.4g}), "
-          f"batch 1 {by[1]['kernel_ms']:.4f} ms (bound "
-          f"{by[1]['bound_ms']:.4f}, plain {by[1]['plain_ms']:.3f}, flash "
-          f"alone {by[1]['library_ms']:.4f}); {card}", flush=True)
+    print("attention kernel, bf16: " + "; ".join(
+        f"{label} ({r['batch']} x {r['grid'][0]}x{r['grid'][1]}, "
+        f"{r['heads']} heads of {r['head_dim']}) {r['kernel_ms']:.4f} ms "
+        f"(bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.3f}, SDPA alone "
+        f"{r['library_ms']:.4f}; error {r['max_abs_err']:.4g} against the "
+        f"plain version's {r['plain_max_abs_err']:.4g})"
+        for label, r in numbers["by_shape"].items()) + f"; {card}",
+        flush=True)
     return numbers
 
 
@@ -3338,7 +3348,7 @@ def main(argv=None):
         "name": "Euler steps euler_steps_cuda, diffusion diffuse_cuda",
         "route": "cuda", "source": "deepcalcium_torch/csrc/flows.cu",
         "replaces": None, **flow_kernels}, {
-        "name": "Cellpose-SAM attention attention_qkv_cuda",
+        "name": "relative-position attention attention_qkv_cuda",
         "route": "cuda", "source": "deepcalcium_torch/csrc/attention.cu",
         "replaces": None, **attention}],
         "evaluate_ms": eval_ms, "train_golden_max_abs_err": golden_errs,

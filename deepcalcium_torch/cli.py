@@ -6,8 +6,9 @@ JSONs, the ``masks/frames`` stack of ``segment``, the ``.npz`` and outlined
 PNG of ``evaluate-movie``). Two flags are added: ``--device {cuda,cpu}`` on
 every subcommand that builds a model or a summary (the default is the card,
 and without one a command fails: nothing falls back to the CPU), and
-``evaluate-movie --arch {unet2ds,cellpose-sam}``, whose ``cellpose-sam``
-runs Cellpose-SAM on the movie's mean image to instance labels.
+``evaluate-movie --arch {unet2ds,cellpose-sam,sam-vit-h}``, whose
+``cellpose-sam`` runs Cellpose-SAM on the movie's mean image to instance
+labels and ``sam-vit-h`` Segment Anything's automatic mask generator.
 
 Usage:
     python -m deepcalcium_torch.cli train all_train
@@ -74,6 +75,13 @@ def _cellpose_wrapper(args):
     return CellposeSummary(model_path=args.model_path,
                            compute_dtype=_DTYPES[args.dtype],
                            device=args.device)
+
+
+def _sam_wrapper(args):
+    from deepcalcium_torch.models.sam_summary import SamSummary
+
+    return SamSummary(model_path=args.model_path,
+                      compute_dtype=_DTYPES[args.dtype], device=args.device)
 
 
 def _spike_wrapper(args):
@@ -316,12 +324,31 @@ def cmd_evaluate_movie(args):
 
     from deepcalcium_torch.utils.visualization import mask_outlines, save_png
 
+    given = sorted(getattr(args, "explicit", ()))
+    if args.arch != "unet2ds" and given:
+        raise SystemExit(f"--arch {args.arch} takes no {', '.join(given)}: "
+                         + ("Cellpose-SAM runs 256 px tiles and thresholds "
+                            "its cell probability at 0"
+                            if args.arch == "cellpose-sam" else
+                            "SAM resizes the image to 1024 px and thresholds "
+                            "its mask logits at 0"))
+    if args.arch == "sam-vit-h":
+        model = _sam_wrapper(args)
+        with _open_raw(args.movie) as raw:
+            got = model.evaluate_movie(raw)
+        labels = got.labels
+        print(f"labels {labels.shape}: {int(labels.max())} masks, "
+              f"{int((labels > 0).sum())} px ({(labels > 0).mean():.2%})")
+        if args.out:
+            np.savez(args.out, labels=labels, masks=got.masks.cpu().numpy(),
+                     scores=got.scores, boxes=got.boxes)
+            print(f"wrote {args.out}")
+        if args.png:
+            save_png(args.png, mask_outlines(labels.astype(np.float32),
+                                             [labels > 0], ["red"]))
+            print(f"wrote {args.png}")
+        return
     if args.arch == "cellpose-sam":
-        given = sorted(getattr(args, "explicit", ()))
-        if given:
-            raise SystemExit(f"--arch cellpose-sam takes no {', '.join(given)}"
-                             f": Cellpose-SAM runs 256 px tiles and "
-                             f"thresholds its cell probability at 0")
         model = _cellpose_wrapper(args)
         with _open_raw(args.movie) as raw:
             labels, flows = model.evaluate_movie(raw)
@@ -547,13 +574,14 @@ def build_parser():
         help="Summary->TTA->threshold evaluate of one raw movie.")
     p.add_argument("movie", help="contract HDF5 (series/raw) path")
     p.add_argument("-m", "--model_path", required=True,
-                   help=".ckpt or Keras .hdf5; a Cellpose-SAM state dict "
-                        "with --arch cellpose-sam")
+                   help=".ckpt or Keras .hdf5; a Cellpose-SAM or SAM state "
+                        "dict with --arch cellpose-sam or sam-vit-h")
     p.add_argument("-c", "--checkpoints_dir")
-    p.add_argument("--arch", choices=("unet2ds", "cellpose-sam"),
+    p.add_argument("--arch", choices=("unet2ds", "cellpose-sam", "sam-vit-h"),
                    default="unet2ds",
                    help="cellpose-sam: Cellpose-SAM on the mean image, to "
-                        "instance labels")
+                        "instance labels; sam-vit-h: Segment Anything's "
+                        "automatic mask generator on the mean image")
     p.add_argument("--window", type=int, default=512, action=_Explicit)
     p.add_argument("--threshold", type=float, default=0.5, action=_Explicit)
     _add_dtype_flag(p, "float32")

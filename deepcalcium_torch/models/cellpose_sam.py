@@ -21,10 +21,12 @@ Published model: Pachitariu, Rariden & Stringer, "Cellpose-SAM" (2025);
   Cellpose-SAM's ``conv_transpose2d`` with ``W2 = eye(192)`` exactly, to
   (B, 3, 256, 256): dY, dX and cellprob.
 
-The weights load by the published state dict's own key names and are held
-in float32; the build (:func:`inference_net`) packs them into one upload
-to the card, re-samples the tables and makes compute-dtype copies of the
-rest there, once. The forward runs in that dtype (bfloat16 as Cellpose 4
+The encoder is the block loop shared with Segment Anything
+(:mod:`deepcalcium_torch.models.sam_vit`), every block global. The weights
+load by the published state dict's own key names and are held in float32;
+the build (:func:`inference_net`) packs them into one upload to the card,
+re-samples the tables and makes compute-dtype copies of the rest there,
+once. The forward runs in that dtype (bfloat16 as Cellpose 4
 runs by default); LayerNorm and softmax keep float32 statistics.
 """
 
@@ -34,8 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepcalcium_torch.models import sam_vit
 from deepcalcium_torch.models.netweights import upload_packed
-from deepcalcium_torch.ops.attention import attention_qkv, resample_rel_pos
 from deepcalcium_torch.utils.profiling import span
 
 __all__ = ["Config", "CellposeSAM", "leaf_shapes", "check_state_dict",
@@ -70,11 +72,11 @@ class Config:
     def head_dim(self) -> int:
         return self.width // self.heads
 
-    def rel_pos_len(self, block: int) -> int:
-        """Length of a block's stored tables (SAM's 64-token global blocks
-        or its 14-token windows)."""
-        return (self.rel_pos_global if block in self.global_blocks
-                else self.rel_pos_window)
+    @property
+    def window_size(self) -> int:
+        """0: every block attends over the whole grid (SAM's ViT-L attends
+        in 14-token windows in all blocks but four)."""
+        return 0
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":
@@ -89,29 +91,9 @@ class Config:
 def leaf_shapes(cfg: Config = Config()) -> list:
     """(key, shape) of every weight the forward reads, by the published
     state dict's names, in its order."""
-    w, m, n, p = cfg.width, cfg.mlp_dim, cfg.neck_dim, cfg.patch
-    out = [("encoder.patch_embed.proj.weight", (w, 3, p, p)),
-           ("encoder.patch_embed.proj.bias", (w,)),
-           ("encoder.pos_embed", (1, cfg.grid, cfg.grid, w))]
-    for i in range(cfg.depth):
-        b = f"encoder.blocks.{i}."
-        r = cfg.rel_pos_len(i)
-        out += [(b + "norm1.weight", (w,)), (b + "norm1.bias", (w,)),
-                (b + "attn.qkv.weight", (3 * w, w)),
-                (b + "attn.qkv.bias", (3 * w,)),
-                (b + "attn.proj.weight", (w, w)), (b + "attn.proj.bias", (w,)),
-                (b + "attn.rel_pos_h", (r, cfg.head_dim)),
-                (b + "attn.rel_pos_w", (r, cfg.head_dim)),
-                (b + "norm2.weight", (w,)), (b + "norm2.bias", (w,)),
-                (b + "mlp.lin1.weight", (m, w)), (b + "mlp.lin1.bias", (m,)),
-                (b + "mlp.lin2.weight", (w, m)), (b + "mlp.lin2.bias", (w,))]
-    c = cfg.out_channels * p * p
-    out += [("encoder.neck.0.weight", (n, w, 1, 1)),
-            ("encoder.neck.1.weight", (n,)), ("encoder.neck.1.bias", (n,)),
-            ("encoder.neck.2.weight", (n, n, 3, 3)),
-            ("encoder.neck.3.weight", (n,)), ("encoder.neck.3.bias", (n,)),
-            ("out.weight", (c, n, 1, 1)), ("out.bias", (c,))]
-    return out
+    c = cfg.out_channels * cfg.patch ** 2
+    return sam_vit.leaf_shapes(cfg, "encoder.") + [
+        ("out.weight", (c, cfg.neck_dim, 1, 1)), ("out.bias", (c,))]
 
 
 def param_count(cfg: Config = Config()) -> int:
@@ -122,13 +104,8 @@ def param_count(cfg: Config = Config()) -> int:
 def forward_flops(cfg: Config = Config()) -> int:
     """FLOPs (2 x multiply-adds) of one forward on one tile: every linear,
     conv and attention product, the two bias contractions included."""
-    n, w, g = cfg.grid ** 2, cfg.width, cfg.grid
-    block = (2 * n * w * 3 * w + 2 * n * w * w + 2 * 2 * n * w * cfg.mlp_dim
-             + 2 * 2 * n * n * w + 2 * 2 * n * g * w)
-    nk = cfg.neck_dim
-    return (2 * n * w * 3 * cfg.patch ** 2 + cfg.depth * block
-            + 2 * n * w * nk + 2 * n * nk * nk * 9
-            + 2 * n * nk * cfg.out_channels * cfg.patch ** 2)
+    return (sam_vit.forward_flops(cfg) + 2 * cfg.grid ** 2 * cfg.neck_dim
+            * cfg.out_channels * cfg.patch ** 2)
 
 
 def check_state_dict(state_dict, cfg: Config = Config()) -> None:
@@ -170,32 +147,10 @@ class CellposeSAM:
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        cfg, t = self.config, self.compute
-        g, w, eps = cfg.grid, cfg.width, cfg.ln_eps
-        b = x.shape[0]
-        x = F.conv2d(x.to(self.compute_dtype), t["patch.w"], t["patch.b"],
-                     stride=cfg.patch)
-        x = (x.permute(0, 2, 3, 1) + t["pos"]).reshape(b, g * g, w)
-        for blk in t["blocks"]:
-            h = F.layer_norm(x, (w,), blk["n1.w"], blk["n1.b"], eps)
-            a = attention_qkv(F.linear(h, blk["qkv.w"], blk["qkv.b"]),
-                              blk["rh"], blk["rw"], (g, g), cfg.heads)
-            x = x + F.linear(a, blk["proj.w"], blk["proj.b"])
-            h = F.layer_norm(x, (w,), blk["n2.w"], blk["n2.b"], eps)
-            x = x + F.linear(F.gelu(F.linear(h, blk["lin1.w"], blk["lin1.b"])),
-                             blk["lin2.w"], blk["lin2.b"])
-        x = x.view(b, g, g, w).permute(0, 3, 1, 2)
-        x = _ln2d(F.conv2d(x, t["neck0"]), t["neck1.w"], t["neck1.b"], eps)
-        x = _ln2d(F.conv2d(x, t["neck2"], padding=1), t["neck3.w"],
-                  t["neck3.b"], eps)
+        t = self.compute
+        x = sam_vit.encode(t, x.to(self.compute_dtype), self.config)
         x = F.conv2d(x, t["out.w"], t["out.b"])
-        return F.pixel_shuffle(x, cfg.patch).float()
-
-
-def _ln2d(x, weight, bias, eps):
-    """LayerNorm over the channels of an NCHW tensor (SAM's LayerNorm2d)."""
-    return F.layer_norm(x.permute(0, 2, 3, 1), (x.shape[1],), weight, bias,
-                        eps).permute(0, 3, 1, 2)
+        return F.pixel_shuffle(x, self.config.patch).float()
 
 
 def inference_net(state_dict, cfg: Config = Config(),
@@ -214,36 +169,8 @@ def inference_net(state_dict, cfg: Config = Config(),
     with span("net.load"):
         cast = {k: v.to(dt) for k, v in weights.items()
                 if "rel_pos" not in k}
-        blocks = []
-        for i in range(cfg.depth):
-            p = f"encoder.blocks.{i}."
-            rh, rw = (resample_rel_pos(weights[p + f"attn.rel_pos_{a}"],
-                                       cfg.grid).to(dt).contiguous()
-                      for a in "hw")
-            blocks.append({
-                "n1.w": cast[p + "norm1.weight"],
-                "n1.b": cast[p + "norm1.bias"],
-                "qkv.w": cast[p + "attn.qkv.weight"],
-                "qkv.b": cast[p + "attn.qkv.bias"],
-                "proj.w": cast[p + "attn.proj.weight"],
-                "proj.b": cast[p + "attn.proj.bias"], "rh": rh, "rw": rw,
-                "n2.w": cast[p + "norm2.weight"],
-                "n2.b": cast[p + "norm2.bias"],
-                "lin1.w": cast[p + "mlp.lin1.weight"],
-                "lin1.b": cast[p + "mlp.lin1.bias"],
-                "lin2.w": cast[p + "mlp.lin2.weight"],
-                "lin2.b": cast[p + "mlp.lin2.bias"]})
-        e = "encoder."
-        compute = {
-            "patch.w": cast[e + "patch_embed.proj.weight"],
-            "patch.b": cast[e + "patch_embed.proj.bias"],
-            "pos": cast[e + "pos_embed"][0], "blocks": blocks,
-            "neck0": cast[e + "neck.0.weight"],
-            "neck1.w": cast[e + "neck.1.weight"],
-            "neck1.b": cast[e + "neck.1.bias"],
-            "neck2": cast[e + "neck.2.weight"],
-            "neck3.w": cast[e + "neck.3.weight"],
-            "neck3.b": cast[e + "neck.3.bias"],
-            "out.w": cast["out.weight"], "out.b": cast["out.bias"]}
+        compute = sam_vit.build(weights, cast, cfg, "encoder.", dt)
+        compute.update({"out.w": cast["out.weight"],
+                        "out.b": cast["out.bias"]})
     with span("net.init"):
         return CellposeSAM(cfg, weights, compute, dt)

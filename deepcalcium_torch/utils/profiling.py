@@ -38,8 +38,8 @@ from typing import NamedTuple
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["trace", "span", "recorded", "Span", "count", "counted", "Count",
-           "ThroughputMeter"]
+__all__ = ["trace", "span", "recorded", "recording", "Span", "count",
+           "counted", "Count", "ThroughputMeter"]
 
 
 @contextlib.contextmanager
@@ -123,12 +123,18 @@ class _Recording:
         return False
 
 
+def recording() -> bool:
+    """Whether spans and counts record now: a ``torch.profiler`` profile
+    is active in the process."""
+    return bool(_autograd_profiler._is_profiler_enabled)
+
+
 def span(name: str):
     """A context that records the enclosed block as the span ``name`` while
     a ``torch.profiler`` profile is active in the process, and does
     nothing otherwise. The process-wide flag is read, not the per-thread
     one, which reads False on threads the profiler did not start on."""
-    if not _autograd_profiler._is_profiler_enabled:
+    if not recording():
         return _OFF
     return _Recording(name)
 
@@ -143,7 +149,7 @@ def count(name: str, value) -> None:
     """Record ``value`` under ``name`` while a ``torch.profiler`` profile
     is active in the process (the switch of :func:`span`); do nothing
     otherwise."""
-    if not _autograd_profiler._is_profiler_enabled:
+    if not recording():
         return
     stack = getattr(_open, "stack", None)
     parent, root = stack[-1] if stack else (None, None)

@@ -53,6 +53,8 @@ def test_port_and_chip_smoke_never_import_jax():
         "import deepcalcium_torch.models.c2s_segmentation\n"
         "import deepcalcium_torch.models.cellpose_summary\n"
         "import deepcalcium_torch.ops.attention\n"
+        "import deepcalcium_torch.models.sam_summary\n"
+        "import deepcalcium_torch.ops.amg\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepcalcium_tpu'))\n"
